@@ -1,30 +1,31 @@
 """Benchmark harness — particle-steps/second on the live device.
 
 Prints ONE JSON line:
-    {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
+    {"metric": ..., "value": N, "unit": "particle-steps/s", "detail": {...}}
 
-The headline metric is sustained particle-steps/second on a water
-dam-break at BENCH_N particles (default 1M on TPU, smaller on CPU), the
-workload class of BASELINE.md ("particle-steps/sec at 1M particles").
-``vs_baseline`` is measured against the driver's north star of 100M
-particle-steps/s on a v5e-8, prorated to a single chip (12.5M/chip),
-since this harness runs single-chip.
+The headline metric is sustained particle-steps/second of the jitted
+substep on a water dam-break into scenes/cube.obj at ``--n`` particles
+(default 1M on an accelerator, 32k on the CPU). ``detail`` names the
+device (platform, device_kind, count, and the card's name and power
+limit where nvidia-smi exists) and carries ``timed_flags``, the status
+bits ORed over the timed substeps, which must be 0 for the number to
+stand.
 
-Usage: python bench.py [--n N] [--steps K] [--scene cube|none] [--json-only]
+Usage: python bench.py [--n N] [--steps K] [--impl tiles|fused|exact]
+                       [--scene cube|none] [--json-only] [--mesh N]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import sys
 import time
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-
-NORTH_STAR_PER_CHIP = 100e6 / 8  # BASELINE.json: 100M p-steps/s on v5e-8
 
 
 def build_params(n: int, fluid_name: str = "water"):
@@ -42,21 +43,75 @@ def build_params(n: int, fluid_name: str = "water"):
     return derive_parameters(dict(FLUIDS[fluid_name]), sim)
 
 
-def bench_mesh(args, params, cfg, scene_dev, state, dt, n, platform, log):
-    """--mesh N: the multi-chip scaling harness (VERDICT r3 item #6).
+def build_arg_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=None, help="particle count")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument(
+        "--scene", default="cube",
+        help="scenes/<name>.obj collision mesh, or 'none' (free space)",
+    )
+    ap.add_argument("--fluid", default="water", choices=["water", "mucus"])
+    ap.add_argument(
+        "--impl", default=None, choices=["tiles", "fused", "exact"],
+        help="the neighbour path to time; default: the platform's "
+        "(libclsph_tpu/platform.py). Another value is a comparison run",
+    )
+    ap.add_argument("--block-size", type=int, default=128)
+    ap.add_argument("--max-candidates", type=int, default=96)
+    ap.add_argument("--sort-interval", type=int, default=4,
+                    help="re-sort every k-th substep (1 = every substep)")
+    ap.add_argument("--json-only", action="store_true")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="run the sharded frame loop over the first N "
+                    "devices (on the CPU: XLA_FLAGS=--xla_force_host_"
+                    "platform_device_count=N JAX_PLATFORMS=cpu for a "
+                    "virtual mesh — shapes and collective counts only)")
+    ap.add_argument("--exchange", default="all_gather",
+                    choices=["all_gather", "halo", "ring"])
+    ap.add_argument("--halo-max", type=int, default=0)
+    ap.add_argument("--halo-hops", type=int, default=1)
+    return ap
 
-    Runs the SHARDED device-side frame loop (make_sharded_frame — the
-    same program the engine dispatches on a v5e-8) for --steps-worth of
-    substeps over the first N devices and reports particle-steps/s plus
-    the per-substep COLLECTIVE counts extracted from the jaxpr, so
-    exchange-traffic regressions are visible without multi-chip
-    hardware. On this single-chip image run it on the virtual CPU mesh
-    (XLA_FLAGS=--xla_force_host_platform_device_count=8
-    JAX_PLATFORMS=cpu, set before process start) for shape/correctness;
-    the SAME command on a real v5e-8 produces the scaling number.
-    """
-    import time as _t
 
+def device_detail() -> dict:
+    from libclsph_tpu.platform import gpu_card
+
+    dev = jax.devices()[0]
+    return dict(
+        platform=dev.platform, device_kind=dev.device_kind,
+        device_count=len(jax.devices()), card=gpu_card(),
+    )
+
+
+def count_collectives(fn, *args) -> dict:
+    """Collective primitives in ``fn``'s jaxpr, by name."""
+    colls = {}
+    names = ("ppermute", "all_gather", "psum", "pmin", "pmax",
+             "reduce_scatter", "all_to_all", "psum_invariant")
+
+    def walk(jx):
+        if hasattr(jx, "jaxpr"):  # ClosedJaxpr
+            jx = jx.jaxpr
+        for eqn in jx.eqns:
+            if eqn.primitive.name in names:
+                colls[eqn.primitive.name] = colls.get(eqn.primitive.name, 0) + 1
+            for sub in eqn.params.values():
+                subs = sub if isinstance(sub, (list, tuple)) else [sub]
+                for s2 in subs:
+                    if hasattr(s2, "eqns") or hasattr(s2, "jaxpr"):
+                        walk(s2)
+
+    walk(jax.make_jaxpr(fn)(*args).jaxpr)
+    return colls
+
+
+def bench_mesh(args, params, cfg, scene_dev, state, dt, n, log):
+    """--mesh N: the sharded device-side frame loop (make_sharded_frame)
+    for --steps substeps' worth of frame budget over the first N
+    devices, plus the per-dispatch collective counts from the jaxpr."""
+    from libclsph_tpu.engine.step import FLAG_CAPACITY
     from libclsph_tpu.parallel.mesh import make_mesh, particle_sharding
     from libclsph_tpu.parallel.sharded_step import (
         make_sharded_frame, pad_for_mesh,
@@ -67,235 +122,85 @@ def bench_mesh(args, params, cfg, scene_dev, state, dt, n, platform, log):
         sys.exit(f"only {len(devices)} device(s); requested {args.mesh}")
     mesh = make_mesh(devices)
     state = pad_for_mesh(state, params, mesh, cfg)
-    sharding = particle_sharding(mesh)
-    state = jax.tree.map(lambda a: jax.device_put(a, sharding), state)
-
-    frame = make_sharded_frame(
-        mesh, params, scene_dev, cfg, exchange=args.exchange,
-        halo_max=args.halo_max or state.position.shape[0]
-        // args.mesh // cfg.block_size,
-        halo_hops=args.halo_hops or (args.mesh + 1) // 2,
+    state = jax.tree.map(
+        lambda a: jax.device_put(a, particle_sharding(mesh)), state
     )
 
-    # per-substep collective counts from the jaxpr (ICI-traffic audit)
-    jaxpr = jax.make_jaxpr(
-        lambda s, d, tl: frame(s, d, tl)
-    )(state, dt, jnp.float32(params.frame_time))
-    colls = {}
-
-    def walk(jx):
-        if hasattr(jx, "jaxpr"):  # ClosedJaxpr
-            jx = jx.jaxpr
-        for eqn in jx.eqns:
-            prim = eqn.primitive.name
-            if prim in ("ppermute", "all_gather", "psum", "pmin", "pmax",
-                        "reduce_scatter", "all_to_all", "psum2",
-                        "psum_invariant"):
-                colls[prim] = colls.get(prim, 0) + 1
-            for sub in eqn.params.values():
-                if hasattr(sub, "eqns") or hasattr(sub, "jaxpr"):
-                    walk(sub)
-                elif isinstance(sub, (list, tuple)):
-                    for s2 in sub:
-                        if hasattr(s2, "eqns") or hasattr(s2, "jaxpr"):
-                            walk(s2)
-
-    walk(jaxpr.jaxpr)
-
-    # warmup (one whole frame's budget) + the engine-style capacity
-    # autotune so the timed run certifies timed_flags == 0
-    import dataclasses as _dc
-
-    from libclsph_tpu.engine.step import (
-        FLAG_CAND_STALE, FLAG_CAPACITY, FLAG_CAPACITY_HIT,
-        FLAG_CAPACITY_SUB,
-    )
-
-    t0 = _t.perf_counter()
-    for _ in range(5):
-        st, d, tl, flags = frame(state, dt, jnp.float32(params.frame_time))
-        jax.block_until_ready(st.position)
-        f = int(flags)
-        if not f:
-            break
-        updates = {}
-        if f & FLAG_CAPACITY:
-            updates["max_candidates"] = cfg.max_candidates * 2
-        if f & FLAG_CAPACITY_SUB:
-            updates["max_candidates_sub"] = cfg.max_candidates_sub * 2
-        if f & FLAG_CAPACITY_HIT:
-            updates["max_candidates_hit"] = cfg.max_candidates_hit * 2
-            updates["max_candidates_hit16"] = cfg.max_candidates_hit16 * 2
-            updates["max_candidates_hit8"] = cfg.max_candidates_hit8 * 2
-        if f & FLAG_CAND_STALE:
-            updates["cand_slack"] = cfg.cand_slack * 2
-        if not updates:
-            break
-        log(f"mesh warmup flags {f} -> {updates}")
-        cfg = _dc.replace(cfg, **updates)
-        frame = make_sharded_frame(
+    def build(cfg):
+        return make_sharded_frame(
             mesh, params, scene_dev, cfg, exchange=args.exchange,
             halo_max=args.halo_max or state.position.shape[0]
             // args.mesh // cfg.block_size,
             halo_hops=args.halo_hops or (args.mesh + 1) // 2,
         )
-    log(f"compile+warmup: {_t.perf_counter() - t0:.1f}s flags={int(flags)}")
 
-    # timed: --steps substeps' worth of frame budget
+    frame = build(cfg)
+    colls = count_collectives(
+        frame, state, dt, jnp.float32(params.frame_time)
+    )
+
+    # warmup (one whole frame's budget), growing the candidate capacity
+    # like the engine until the timed run can certify timed_flags == 0
+    t0 = time.perf_counter()
+    for _ in range(5):
+        st, d, tl, flags = frame(state, dt, jnp.float32(params.frame_time))
+        jax.block_until_ready(st.position)
+        if not int(flags) & FLAG_CAPACITY:
+            break
+        cfg = dataclasses.replace(cfg, max_candidates=cfg.max_candidates * 2)
+        log(f"mesh warmup flags {int(flags)} -> max_candidates {cfg.max_candidates}")
+        frame = build(cfg)
+    log(f"compile+warmup: {time.perf_counter() - t0:.1f}s flags={int(flags)}")
+
     budget = float(params.max_dt) * args.steps
-    t0 = _t.perf_counter()
+    t0 = time.perf_counter()
     st, d, tl, flags = frame(state, dt, jnp.float32(budget))
     jax.block_until_ready(st.position)
-    elapsed = _t.perf_counter() - t0
-    # substeps actually run: budget consumed at the adaptive dt
-    steps_est = args.steps  # dt starts at max_dt and only shrinks
-    psteps = n * steps_est / elapsed
-    result = {
+    elapsed = time.perf_counter() - t0
+    steps = args.steps  # dt starts at max_dt and only shrinks
+    return {
         "metric": (
             f"sharded particle-steps/sec @ {n} x {args.mesh} devices "
-            f"({platform}, exchange={args.exchange})"
+            f"(exchange={args.exchange})"
         ),
-        "value": round(psteps, 1),
+        "value": n * steps / elapsed,
         "unit": "particle-steps/s",
-        "vs_baseline": round(psteps / (NORTH_STAR_PER_CHIP * args.mesh), 4),
-        "detail": {
-            "n": n, "mesh": args.mesh, "exchange": args.exchange,
-            "elapsed_s": round(elapsed, 4),
-            "ms_per_step": round(1000 * elapsed / steps_est, 3),
-            "platform": platform,
-            "timed_flags": int(flags),
-            "collectives_per_frame_dispatch": colls,
-            "timing_valid": platform == "tpu",
-        },
+        "detail": dict(
+            device_detail(), n=n, mesh=args.mesh, exchange=args.exchange,
+            impl=cfg.neighbor_impl, elapsed_s=elapsed,
+            ms_per_step=1000 * elapsed / steps, timed_flags=int(flags),
+            collectives_per_frame_dispatch=colls,
+        ),
     }
-    print(json.dumps(result))
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--n", type=int, default=None, help="particle count")
-    ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--warmup", type=int, default=3)
-    ap.add_argument(
-        "--scene", default="cube",
-        help="scenes/<name>.obj collision mesh, or 'none' (free space)",
-    )
-    ap.add_argument("--fluid", default="water", choices=["water", "mucus"])
-    ap.add_argument("--impl", default="pallas", choices=["tiles", "pallas", "exact"])
-    ap.add_argument("--block-size", type=int, default=128)
-    ap.add_argument("--max-candidates", type=int, default=96)
-    ap.add_argument("--tile-mode", default="direct", choices=["direct", "mxu"])
-    ap.add_argument(
-        "--pallas-variant", default="nl", choices=["nl", "asm", "row", "fine", "asym"]
-    )
-    ap.add_argument("--nl-query-rows", type=int, default=128)
-    ap.add_argument("--max-candidates-sub", type=int, default=192,
-                    help="r3 default sized for the 16-granular tables")
-    ap.add_argument("--max-candidates-hit", type=int, default=96)
-    ap.add_argument("--no-hit-compact", action="store_true")
-    ap.add_argument("--force-query-rows", type=int, default=32,
-                    choices=[32, 128])
-    ap.add_argument("--force-sub16", action=argparse.BooleanOptionalAction,
-                    default=True,
-                    help="16-wide candidate subblocks for the q32 force pass")
-    ap.add_argument("--max-candidates-hit16", type=int, default=64)
-    ap.add_argument("--force-sub8", action=argparse.BooleanOptionalAction,
-                    default=True,
-                    help="8-wide candidate subblocks for the q32 force "
-                    "pass (r5; requires --density-sub16; measured 163.4 "
-                    "vs 175.7 ms/substep at 1M)")
-    ap.add_argument("--max-candidates-hit8", type=int, default=80)
-    ap.add_argument("--density-sub16", action=argparse.BooleanOptionalAction,
-                    default=True,
-                    help="16-wide candidate tables for the density pass too "
-                    "(implies --force-sub16 force path; size "
-                    "--max-candidates-sub in 16-wide units, ~1.5x)")
-    ap.add_argument("--tier2-frac", type=int, default=0)
-    ap.add_argument("--tier2-mult", type=int, default=2)
-    ap.add_argument("--sort-interval", type=int, default=4,
-                    help="re-sort every k-th substep (1 = every substep)")
-    ap.add_argument("--cand-interval", type=int, default=4,
-                    help="rebuild candidate lists every k-th substep "
-                    "(Verlet-list reuse; batch-8 cadence A/B at 1M: "
-                    "k=1 212.4, k=2 207.6, k=3 199.0, k=4 193.5 ms — "
-                    "equivalence + stale-guard tested; the timed_flags "
-                    "detail certifies no stale reuse happened)")
-    ap.add_argument("--cand-slack", type=float, default=0.25,
-                    help="refine dilation as a fraction of h for reuse")
-    ap.add_argument("--density-gate", action=argparse.BooleanOptionalAction,
-                    default=False,
-                    help="gate reuse-substep density panels by the build "
-                    "substep's dilated tile-hit flags (r4; measured a "
-                    "LOSER on v5e: 264 vs 188 ms at 1M)")
-    ap.add_argument("--json-only", action="store_true")
-    ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="run the SHARDED frame loop over the first N "
-                    "devices (the v5e-8 scaling harness; on this image "
-                    "run with XLA_FLAGS=--xla_force_host_platform_"
-                    "device_count=8 JAX_PLATFORMS=cpu for the virtual "
-                    "mesh — shape/correctness + collective counts, not "
-                    "timing)")
-    ap.add_argument("--exchange", default="all_gather",
-                    choices=["all_gather", "halo", "ring"])
-    ap.add_argument("--halo-max", type=int, default=0)
-    ap.add_argument("--halo-hops", type=int, default=1)
-    args = ap.parse_args()
-
-    platform = jax.devices()[0].platform
-    on_accel = platform not in ("cpu",)
-    n = args.n or (1_000_000 if on_accel else 32_768)
-
+def run(argv=None) -> dict:
+    """Run the benchmark in this process; returns the result record."""
+    from libclsph_tpu import platform
     from libclsph_tpu.core.state import init_state
-    from libclsph_tpu.engine.step import StepConfig, substep_jit
+    from libclsph_tpu.engine.step import FLAG_CAPACITY, StepConfig, substep_jit
     from libclsph_tpu.ops import collisions as collisions_ops
     from libclsph_tpu.scene.scene import Scene
 
+    args = build_arg_parser().parse_args(argv)
+    platform.enable_compile_cache()
+    on_cpu = jax.devices()[0].platform == "cpu"
+    n = args.n or (32_768 if on_cpu else 1_000_000)
+
     params = build_params(n, args.fluid)
     cfg = StepConfig(
-        neighbor_impl=args.impl,
+        neighbor_impl=args.impl or platform.neighbor_impl(),
         block_size=args.block_size,
         max_candidates=args.max_candidates,
-        tile_mode=args.tile_mode,
-        pallas_variant=args.pallas_variant,
-        nl_query_rows=args.nl_query_rows,
-        max_candidates_sub=args.max_candidates_sub,
-        max_candidates_hit=args.max_candidates_hit,
-        hit_compact=not args.no_hit_compact,
-        force_query_rows=args.force_query_rows,
-        force_sub16=args.force_sub16,
-        max_candidates_hit16=args.max_candidates_hit16,
-        density_sub16=args.density_sub16,
-        force_sub8=args.force_sub8,
-        max_candidates_hit8=args.max_candidates_hit8,
-        tier2_frac=args.tier2_frac,
-        tier2_mult=args.tier2_mult,
         sort_interval=args.sort_interval,
-        cand_interval=args.cand_interval,
-        cand_slack=args.cand_slack,
-        density_gate=args.density_gate,
     )
-    if args.cand_interval > 1 and args.sort_interval % args.cand_interval:
-        # reuse substeps must not re-sort (ids index the sorted order);
-        # aligning the intervals keeps the schedule simple
-        sys.exit("--cand-interval must divide --sort-interval")
-    import dataclasses as _dc
-
-    if cfg.cand_interval > 1 and (
-        cfg.neighbor_impl != "pallas" or cfg.pallas_variant != "nl"
-        or cfg.nl_query_rows < cfg.block_size
-    ):
-        # candidate reuse is a perf feature of the production nl shape;
-        # quietly rebuild every substep on other shapes
-        cfg = _dc.replace(cfg, cand_interval=1)
-    if cfg.density_sub16 and min(cfg.block_size, cfg.nl_query_rows) < 128:
-        # the 16-granular density path needs whole-128 query rows;
-        # quietly fall back at smaller blocks (the defaults are sized
-        # for the production 128 shape)
-        cfg = _dc.replace(cfg, density_sub16=False, force_sub8=False)
-
     scene_dev = None
     if args.scene != "none":
-        scene = Scene.load(args.scene + ".obj", params.h * 2, scenes_dir="scenes")
+        scene = Scene.load(
+            args.scene + ".obj", params.h * 2,
+            scenes_dir=os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "scenes"),
+        )
         scene_dev = collisions_ops.build_device_scene(scene)
 
     state = init_state(params)
@@ -305,123 +210,60 @@ def main():
         if not args.json_only:
             print(msg, file=sys.stderr)
 
-    log(f"platform={platform} n={n} impl={args.impl} scene={args.scene}")
-
+    log(f"n={n} impl={cfg.neighbor_impl} scene={args.scene}")
     if args.mesh:
-        return bench_mesh(args, params, cfg, scene_dev, state, dt, n,
-                          platform, log)
+        return bench_mesh(args, params, cfg, scene_dev, state, dt, n, log)
+
+    def substeps(s, d, count):
+        flags = jnp.int32(0)
+        for i in range(count):
+            s, d, f = substep_jit(
+                s, d, params, scene_dev, cfg,
+                do_sort=i % cfg.sort_interval == 0,
+            )
+            # OR across substeps: a NaN'd state stops overflowing,
+            # masking an early truncation
+            flags = flags | f
+        return s, d, flags
 
     # warmup + compile; grow the candidate capacity until no overflow
     # (mirrors the engine's autotune) so the timed physics is exact
-    import dataclasses
-
-    from libclsph_tpu.engine.step import (
-        FLAG_CAND_STALE, FLAG_CAPACITY, FLAG_CAPACITY_HIT, FLAG_CAPACITY_SUB,
-        FLAG_CAPACITY_T2,
-    )
-
-    from libclsph_tpu.engine.step import substep_reuse_jit
-
-    def run_substep(s, d, i, tables):
-        do_sort = i % args.sort_interval == 0
-        if cfg.cand_interval <= 1:
-            s, d, f = substep_jit(
-                s, d, params, scene_dev, cfg, do_sort=do_sort
-            )
-            return s, d, f, None
-        if i % cfg.cand_interval == 0:
-            return substep_jit(s, d, params, scene_dev, cfg, do_sort=do_sort)
-        return substep_reuse_jit(s, d, params, scene_dev, cfg, tables)
-
     t0 = time.perf_counter()
     for _ in range(6):
-        s_try, d_try = state, dt
-        overflow = jnp.int32(0)
-        tables = None
-        for i in range(args.warmup):
-            s_try, d_try, flags, tables = run_substep(s_try, d_try, i, tables)
-            overflow = overflow | flags  # OR across substeps: a NaN'd
-            # state stops overflowing, masking an early truncation
+        s_try, d_try, flags = substeps(state, dt, args.warmup)
         jax.block_until_ready(s_try.position)
-        ovf = int(overflow)
-        if not ovf:
+        if not int(flags) & FLAG_CAPACITY:
             break
-        # grow only the flagged table (mirrors the engine autotune,
-        # incl. the two-tier routing escalation — see _grow_capacity)
-        can_t2 = (
-            cfg.neighbor_impl == "pallas"
-            and cfg.pallas_variant == "nl"
-            and cfg.nl_query_rows >= cfg.block_size
-            # r4: tier2 composes with density_sub16 (c16_all mode)
-            # and with candidate reuse (the carry is the tier-2-width
-            # table; routing is recomputed per substep from counts)
-        )
-        updates = {}
-        if ovf & FLAG_CAPACITY:
-            updates["max_candidates"] = cfg.max_candidates * 2
-        if ovf & FLAG_CAPACITY_SUB:
-            if can_t2 and cfg.tier2_frac == 0:
-                updates["tier2_frac"] = 8
-            elif cfg.tier2_frac > 0:
-                updates["tier2_mult"] = cfg.tier2_mult * 2
-            else:
-                updates["max_candidates_sub"] = cfg.max_candidates_sub * 2
-        if ovf & FLAG_CAPACITY_T2:
-            updates["tier2_frac"] = max(1, cfg.tier2_frac // 2)
-        if ovf & FLAG_CAPACITY_HIT:
-            if cfg.force_sub8 and cfg.density_sub16:
-                # 32-slot steps: capacity IS streamed bytes (a doubling
-                # measured +33 ms/substep at 2M)
-                updates["max_candidates_hit8"] = cfg.max_candidates_hit8 + 32
-            elif cfg.force_sub16 and cfg.force_query_rows == 32:
-                updates["max_candidates_hit16"] = cfg.max_candidates_hit16 * 2
-            else:
-                updates["max_candidates_hit"] = cfg.max_candidates_hit * 2
-        if ovf & FLAG_CAND_STALE:
-            updates["cand_slack"] = cfg.cand_slack * 2
-        cfg = dataclasses.replace(cfg, **updates)
-        log(f"capacity overflow -> {updates}")
+        cfg = dataclasses.replace(cfg, max_candidates=cfg.max_candidates * 2)
+        log(f"capacity overflow -> max_candidates {cfg.max_candidates}")
     state, dt = s_try, d_try
-    log(f"compile+warmup: {time.perf_counter() - t0:.1f}s")
+    compile_s = time.perf_counter() - t0
+    log(f"compile+warmup: {compile_s:.1f}s")
 
     t0 = time.perf_counter()
-    tables = None
-    timed_ovf = jnp.int32(0)
-    for i in range(args.steps):
-        state, dt, f, tables = run_substep(state, dt, i, tables)
-        timed_ovf = timed_ovf | f
+    state, dt, timed_flags = substeps(state, dt, args.steps)
     jax.block_until_ready(state.position)
     elapsed = time.perf_counter() - t0
-    if int(timed_ovf):
-        log(f"WARNING: flags {int(timed_ovf)} raised during the timed run")
+    if int(timed_flags):
+        log(f"WARNING: flags {int(timed_flags)} raised during the timed run")
 
-    steps_per_s = args.steps / elapsed
-    psteps = n * steps_per_s
-    result = {
-        "metric": (
-            f"particle-steps/sec {args.fluid} dam-break @ {n} particles"
-            f" ({platform})"
-        ),
-        "value": round(psteps, 1),
+    return {
+        "metric": f"particle-steps/sec {args.fluid} dam-break @ {n} particles",
+        "value": n * args.steps / elapsed,
         "unit": "particle-steps/s",
-        "vs_baseline": round(psteps / NORTH_STAR_PER_CHIP, 4),
-        "detail": {
-            "n": n,
-            "steps": args.steps,
-            "elapsed_s": round(elapsed, 4),
-            "ms_per_step": round(1000 * elapsed / args.steps, 3),
-            "impl": args.impl,
-            "scene": args.scene,
-            "platform": platform,
-            "final_dt": float(dt),
-            # status bitfield ORed over the timed substeps — MUST be 0
-            # for the number to stand (any capacity truncation or a
-            # stale candidate reuse would taint the physics; the
-            # warmup autotune grows capacities/slack until clean)
-            "timed_flags": int(timed_ovf),
-        },
+        "detail": dict(
+            device_detail(), n=n, steps=args.steps, elapsed_s=elapsed,
+            ms_per_step=1000 * elapsed / args.steps, impl=cfg.neighbor_impl,
+            max_candidates=cfg.max_candidates,
+            sort_interval=cfg.sort_interval, scene=args.scene,
+            compile_warmup_s=compile_s, final_dt=float(dt),
+            timed_flags=int(timed_flags),
+        ),
     }
-    print(json.dumps(result))
+
+
+def main():
+    print(json.dumps(run()))
 
 
 if __name__ == "__main__":

@@ -6,7 +6,7 @@ draws points with a density-coloured shader each frame
 (opengl.cpp:105-160, shaders/vert.glsl). Rendering is thus a *client
 callback*, not an engine feature.
 
-This example demonstrates the identical hook on the TPU engine: a
+This example demonstrates the identical hook on this engine: a
 ``pre_frame`` callback renders each frame's particles to a PNG
 (matplotlib scatter, density colour ramp) while the device computes
 the next frame. Swap the renderer for anything interactive.

@@ -1,9 +1,9 @@
-"""Interactive live viewer — the reference's OpenGL example on TPU.
+"""Interactive live viewer — the reference's OpenGL example in JAX.
 
 ``example/opengl.cpp:41-171`` opens a GLFW window, installs a
 ``pre_frame`` callback that uploads the particle buffer as a VBO, and
 draws density-coloured points with a rotating camera
-(shaders/vert.glsl). This is the same architecture on the TPU engine:
+(shaders/vert.glsl). This is the same architecture on this engine:
 a real interactive window (pygame/SDL), the identical density colour
 ramp, a rotating orbit camera — and the rasterisation itself runs ON
 the accelerator by default (io/render.py, the engine's ``device_view``

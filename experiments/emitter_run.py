@@ -1,5 +1,5 @@
-"""BASELINE matrix #4 as specified: shower.obj emitter onto monkey.obj
-at 256k particles.
+"""The shower workload: shower.obj emitter onto monkey.obj at 256k
+particles.
 
 The reference's emitter mechanism is the pre_frame write-back hook
 (sph_simulation.cpp:730-748): a callback that mutates the host particle
@@ -8,7 +8,7 @@ production engine with a shower-head emitter whose nozzle sites come
 from the actual shower.obj tray geometry (scenes/shower.obj): particles
 that settle into the monkey.obj catch box are recycled to the nozzle
 with a downward jet, so the steady state is a continuous 256k-particle
-shower onto the obstacle — the matrix's "mesh-collision heavy" case
+shower onto the obstacle — the "mesh-collision heavy" case
 (monkey.obj: obstacle + catch box).
 
 Prints one JSON line: median/mean s/frame, substeps, particle-steps/s.
@@ -60,14 +60,7 @@ def main():
           file=sys.stderr)
 
     sim = SPHSimulation(step_config=StepConfig(
-        neighbor_impl="pallas", pallas_variant="nl",
-        max_candidates=96, max_candidates_sub=192, max_candidates_hit=96,
-        force_query_rows=32, force_sub16=True, density_sub16=True,
-        max_candidates_hit16=64, force_sub8=True, max_candidates_hit8=80,
-        # per-frame pre_frame uploads invalidate carried device state,
-        # so the engine runs the per-frame rebuild schedule anyway;
-        # cadence within a frame still applies
-        sort_interval=4, cand_interval=4,
+        max_candidates=96, sort_interval=4,
     ))
     sim.parameters = derive_parameters(
         dict(WATER),
@@ -138,7 +131,7 @@ def main():
     # (the tray is perforated over its whole area — point nozzles would
     # stack hundreds of recycled particles inside one smoothing radius
     # and the Tait EOS (rho/rho0)^7 explodes them across the Morton
-    # grid limit; measured rc=1 in r5_deliver.log emitter-256k-v2)
+    # grid limit)
     gx = np.arange(-1.0, 1.0, spacing)
     tray_grid = np.stack(
         [a.ravel() for a in np.meshgrid(gx, gx, indexing="ij")], axis=1

@@ -1,179 +1,155 @@
-"""Fidelity at bench scale (VERDICT r2 item #9): run a 64k water
-dam-break for K substeps on the device, then compare the production
-path's density/accel against a vectorised float64 oracle of the same
-governing equations (Mueller-03 + Kelager 4.11 + colour-field ST —
-the math of forces.cl:14-111 / sphb.cl:3-126).
+"""Fidelity at bench scale: run a 64k water dam-break for K substeps on
+the device, then compare the platform path's density/accel against a
+vectorised float64 oracle of the same governing equations (Mueller-03 +
+Kelager 4.11 + colour-field surface tension — the math of
+forces.cl:14-111 / sphb.cl:3-126).
 
 Density error is measured over ALL particles; accel over a random row
-subsample (the f64 pair sums are O(rows * N)).
+subsample (the f64 pair sums are O(rows * N)). Both are relative RMS,
+sqrt(sum err^2 / sum ref^2).
 
-Run ON TPU:  python experiments/fidelity_64k.py [dot_mode]
-dot_mode: 'highest' (default) | 'split3' — sets LIBCLSPH_TPU_DOT_MODE
-before importing the kernels.
+Run:  python experiments/fidelity_64k.py
+(``chip_smoke.py`` imports the oracle functions below.)
 """
+
+from __future__ import annotations
 
 import os
 import sys
-
-sys.path.insert(0, ".")
-
-if len(sys.argv) > 1:
-    os.environ["LIBCLSPH_TPU_DOT_MODE"] = sys.argv[1]
-
 import time
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 
-from libclsph_tpu.core.params import derive_parameters
-from libclsph_tpu.core.state import init_state
-from libclsph_tpu.engine.step import StepConfig, substep_jit
 
-platform = jax.devices()[0].platform
-print(f"platform={platform}", file=sys.stderr, flush=True)
-if platform != "tpu" and not os.environ.get("FIDELITY_ALLOW_CPU"):
-    # a failed TPU init silently falls back to CPU, where the Pallas
-    # kernels run in interpret mode — a 64k substep then takes minutes
-    # and the run looks hung (r3_results.jsonl fidelity-highest, 40 min
-    # of host spin with no output). Fail loudly instead.
-    sys.exit("refusing to run on CPU fallback (set FIDELITY_ALLOW_CPU=1)")
+def oracle_density(pos: np.ndarray, params) -> np.ndarray:
+    """float64 poly6 density of every particle in ``pos`` (N, 3).
 
-N = int(os.environ.get("FIDELITY_N", "65536"))
-SETTLE = int(os.environ.get("FIDELITY_SETTLE", "20"))
-ROWS = 512
+    Uses the kernel's compact support: a KD-tree pair list (r < h),
+    with pair distances evaluated in f64."""
+    from scipy.spatial import cKDTree
 
-fluid = dict(fluid_density=998.29, dynamic_viscosity=3.5, restitution=0, k=100,
-             surface_tension_threshold=7.065, surface_tension=0.0728,
-             particles_inside_influence_radius=20)
-sim = dict(particles_count=N, particle_mass=0.05, simulation_time=3,
-           target_fps=60, simulation_scale=0.1,
-             constant_acceleration=dict(x=0, y=-9.8, z=0))
-params = derive_parameters(fluid, sim)
-# the r3 production config (bench.py defaults): q32+c16 kernels
-cfg = StepConfig(neighbor_impl="pallas", pallas_variant="nl",
-                 max_candidates=96, max_candidates_sub=192,
-                 max_candidates_hit=96, force_query_rows=32,
-                 force_sub16=True, density_sub16=True,
-                 force_sub8=True, max_candidates_hit8=80)
-
-state = init_state(params)
-dt = jnp.float32(params.max_dt)
-t0 = time.perf_counter()
-for i in range(SETTLE):
-    state, dt, flags = substep_jit(state, dt, params, None, cfg)
-    if i == 0:
-        jax.block_until_ready(state.position)
-        print(f"first substep (incl compile): "
-              f"{time.perf_counter() - t0:.1f}s", file=sys.stderr, flush=True)
-assert not int(flags), int(flags)
-print(f"settled {SETTLE} substeps in {time.perf_counter() - t0:.1f}s",
-      file=sys.stderr, flush=True)
-
-# one more substep at negligible dt: density/accel are evaluated on the
-# (fetched) input positions. The substep SORTS the particles, so the
-# device outputs are in Morton order — match rows to the fetched input
-# by quantized position order (tests/test_physics.py match_order; the
-# 1e-9 dt moves positions by <= |v| * 1e-9, below the 1e-6 quantum).
-def mark(msg, t=[time.perf_counter()]):
-    now = time.perf_counter()
-    print(f"[{now - t[0]:7.1f}s] {msg}", file=sys.stderr, flush=True)
-    t[0] = now
-
-pos0 = np.asarray(state.position, np.float64)
-vel0 = np.asarray(state.velocity, np.float64)
-mark("fetched settled state")
-out, _, _ = substep_jit(state, jnp.float32(1e-9), params, None, cfg)
+    pos = np.asarray(pos, np.float64)
+    h = float(params.h)
+    mass = float(params.particle_mass)
+    c_poly6 = 315.0 / (64.0 * np.pi * h**9)
+    pairs = cKDTree(pos).query_pairs(h, output_type="ndarray")  # i < j
+    pi, pj = pairs[:, 0], pairs[:, 1]
+    r2 = ((pos[pi] - pos[pj]) ** 2).sum(axis=1)
+    tp = np.maximum(h * h - r2, 0.0) ** 3
+    rho = np.full(len(pos), mass * c_poly6 * h**6)  # self term (r = 0)
+    np.add.at(rho, pi, mass * c_poly6 * tp)
+    np.add.at(rho, pj, mass * c_poly6 * tp)
+    return rho
 
 
-def order(p):
-    return np.lexsort(np.round(p, 6).T)
+def oracle_accel(pos, vel, rho, params, rows):
+    """float64 acceleration of particles ``rows`` given all positions,
+    velocities and densities (forces.cl:44-126). Returns (accel
+    (rows, 3), colour-field gradient length (rows,)): rows whose length
+    sits at the surface-tension threshold switch branch under any
+    rounding."""
+    pos = np.asarray(pos, np.float64)
+    vel = np.asarray(vel, np.float64)
+    rho = np.asarray(rho, np.float64)
+    n = len(pos)
+    h = float(params.h)
+    mass = float(params.particle_mass)
+    c_grad = -945.0 / (32.0 * np.pi * h**9)
+    c_lap = -945.0 / (32.0 * np.pi * h**9)
+    c_spiky = -45.0 / (np.pi * h**6)
+    c_visc = 45.0 / (np.pi * h**6)
+    press = params.K * ((rho / params.fluid_density) ** 7 - 1.0)
+    acc = np.zeros((len(rows), 3))
+    nlens = np.zeros(len(rows))
+    for k, i in enumerate(rows):
+        rv = pos[i] - pos  # (N, 3)
+        r2 = np.einsum("ij,ij->i", rv, rv)
+        r = np.sqrt(r2)
+        incl = r < h
+        near0 = r < 1e-7
+        sel = incl & (np.arange(n) != i)
+        coeff = press[sel] / rho[sel] ** 2 + press[i] / rho[i] ** 2
+        rr = r[sel]
+        sg = np.where(
+            near0[sel, None],
+            np.full((sel.sum(), 3), c_spiky),
+            c_spiky * rv[sel] / np.where(near0[sel, None], 1.0, rr[:, None])
+            * (h - rr[:, None]) ** 2,
+        )
+        pr = (coeff[:, None] * mass * sg).sum(axis=0)
+        vi = (
+            (vel[sel] - vel[i]) * (mass / rho[sel])[:, None] * c_visc
+            * (h - rr)[:, None]
+        ).sum(axis=0)
+        t = (h * h - r2)[incl]
+        normal = (
+            (mass / rho[incl])[:, None] * c_grad * rv[incl] * (t**2)[:, None]
+        ).sum(axis=0)
+        lap = (mass / rho[incl] * c_lap * t * (3 * h * h - 7 * r2[incl])).sum()
+        total = -rho[i] * pr + params.dynamic_viscosity * vi
+        nlen = np.linalg.norm(normal)
+        if nlen > params.surface_tension_threshold:
+            total += -params.surface_tension * lap * normal / nlen
+        acc[k] = total / rho[i] + np.asarray(params.constant_acceleration)
+        nlens[k] = nlen
+    return acc, nlens
 
-mark("dispatched 1e-9 substep")
-out_pos = np.asarray(out.position, np.float64)
-mark("fetched substep output")
-o_ref = order(pos0)
-o_dev = order(out_pos)
-pos = pos0[o_ref]
-vel = vel0[o_ref]
-rho_dev = np.asarray(out.density, np.float64)[o_dev]
-acc_dev = np.asarray(out.acceleration, np.float64)[o_dev]
-mark("ordered device outputs")
 
-h = float(params.h)
-mass = float(params.particle_mass)
-c_poly6 = 315.0 / (64.0 * np.pi * h**9)
-c_grad = -945.0 / (32.0 * np.pi * h**9)
-c_lap = -945.0 / (32.0 * np.pi * h**9)
-c_spiky = -45.0 / (np.pi * h**6)
-c_visc = 45.0 / (np.pi * h**6)
+def rel_rms(got, ref) -> float:
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float(np.sqrt(np.sum((got - ref) ** 2) / np.sum(ref**2)))
 
-# ---- f64 density for ALL particles. Exploit the kernel's compact
-# support with a KD-tree pair list (the earlier chunked 64k x 64k
-# Gram-matrix sweep was ~25 min of f64 traffic on this box's single
-# core — it blew the batch timeouts twice, r3_results.jsonl
-# fidelity-highest). Pair distances are evaluated in f64 directly.
-from scipy.spatial import cKDTree
 
-tree = cKDTree(pos)
-pairs = tree.query_pairs(h, output_type="ndarray")  # i < j, r < h
-mark(f"kdtree: {len(pairs)} pairs")
-pi, pj = pairs[:, 0], pairs[:, 1]
-r2p = ((pos[pi] - pos[pj]) ** 2).sum(axis=1)
-tp = np.maximum(h * h - r2p, 0.0) ** 3
-rho = np.full(N, mass * c_poly6 * h**6)  # self term (r = 0)
-np.add.at(rho, pi, mass * c_poly6 * tp)
-np.add.at(rho, pj, mass * c_poly6 * tp)
-mark("density oracle done")
-press = params.K * ((rho / params.fluid_density) ** 7 - 1.0)
+def main():
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import jax
+    import jax.numpy as jnp
 
-rms_rel_rho = float(np.sqrt(np.mean(((rho_dev - rho) / rho) ** 2)))
-max_rel_rho = float(np.max(np.abs(rho_dev - rho) / rho))
-print(f"density: RMS rel {rms_rel_rho:.3e}  max rel {max_rel_rho:.3e}")
+    from bench import build_params
+    from libclsph_tpu.core.state import init_state
+    from libclsph_tpu.engine.step import StepConfig, substep_jit
 
-# ---- f64 accel for a row subsample
-rng = np.random.default_rng(7)
-rows = np.sort(rng.choice(N, ROWS, replace=False))
-acc = np.zeros((ROWS, 3))
-for k, i in enumerate(rows):
-    rv = pos[i] - pos  # (N, 3)
-    r2 = np.einsum("ij,ij->i", rv, rv)
-    r = np.sqrt(r2)
-    incl = r < h
-    near0 = r < 1e-7
-    sel = incl & (np.arange(N) != i)
-    coeff = press[sel] / rho[sel] ** 2 + press[i] / rho[i] ** 2
-    rr = r[sel]
-    sg = np.where(
-        near0[sel, None],
-        np.full((sel.sum(), 3), c_spiky),
-        c_spiky * rv[sel] / np.where(near0[sel, None], 1.0, rr[:, None])
-        * (h - rr[:, None]) ** 2,
-    )
-    pr = (coeff[:, None] * mass * sg).sum(axis=0)
-    vi = (
-        (vel[sel] - vel[i]) * (mass / rho[sel])[:, None] * c_visc
-        * (h - rr)[:, None]
-    ).sum(axis=0)
-    t = (h * h - r2)[incl]
-    normal = (
-        (mass / rho[incl])[:, None] * c_grad * rv[incl] * (t**2)[:, None]
-    ).sum(axis=0)
-    lap = (
-        mass / rho[incl] * c_lap * t * (3 * h * h - 7 * r2[incl])
-    ).sum()
-    total = -rho[i] * pr + params.dynamic_viscosity * vi
-    nlen = np.linalg.norm(normal)
-    if nlen > params.surface_tension_threshold:
-        total += -params.surface_tension * lap * normal / nlen
-    acc[k] = total / rho[i] + np.asarray(params.constant_acceleration)
-    if k == 0:
-        mark("accel oracle: first row")
+    n = int(os.environ.get("FIDELITY_N", "65536"))
+    settle = int(os.environ.get("FIDELITY_SETTLE", "20"))
+    params = build_params(n)
+    cfg = StepConfig(max_candidates=96)
+    print(f"platform={jax.devices()[0].platform} impl={cfg.neighbor_impl}",
+          file=sys.stderr)
 
-scale = np.abs(acc).max()
-err = np.abs(acc_dev[rows] - acc)
-print(
-    f"accel ({os.environ.get('LIBCLSPH_TPU_DOT_MODE', 'highest')}):"
-    f" RMS rel {np.sqrt(np.mean(err**2)) / scale:.3e}"
-    f"  max rel {err.max() / scale:.3e}  (scale {scale:.2f} m/s^2)"
-)
+    state = init_state(params)
+    dt = jnp.float32(params.max_dt)
+    t0 = time.perf_counter()
+    for _ in range(settle):
+        state, dt, flags = substep_jit(state, dt, params, None, cfg)
+    if int(flags):
+        sys.exit(f"flags {int(flags)} while settling")
+    print(f"settled {settle} substeps in {time.perf_counter() - t0:.1f}s",
+          file=sys.stderr)
+
+    # one more substep at negligible dt: density/accel are evaluated on
+    # the input positions; the substep sorts, so match rows by quantized
+    # position order (the 1e-9 dt moves positions by <= |v| * 1e-9)
+    pos0 = np.asarray(state.position, np.float64)
+    vel0 = np.asarray(state.velocity, np.float64)
+    out, _, _ = substep_jit(state, jnp.float32(1e-9), params, None, cfg)
+
+    def order(p):
+        return np.lexsort(np.round(p, 6).T)
+
+    o_ref = order(pos0)
+    o_dev = order(np.asarray(out.position, np.float64))
+    pos, vel = pos0[o_ref], vel0[o_ref]
+    rho_dev = np.asarray(out.density, np.float64)[o_dev]
+    acc_dev = np.asarray(out.acceleration, np.float64)[o_dev]
+
+    rho = oracle_density(pos, params)
+    rows = np.sort(np.random.default_rng(7).choice(n, 512, replace=False))
+    acc, _ = oracle_accel(pos, vel, rho, params, rows)
+    print(f"density: RMS rel {rel_rms(rho_dev, rho):.3e}  "
+          f"max rel {np.max(np.abs(rho_dev - rho) / rho):.3e}")
+    print(f"accel: RMS rel {rel_rms(acc_dev[rows], acc):.3e}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""Collision-active fidelity probe (VERDICT r3 item #5): settle a 64k
+"""Collision-active fidelity probe: settle a 64k
 water dam-break into the box.obj container, then compare one production substep's
 density, acceleration AND post-collision position/velocity against a
 float64 oracle that recomputes the whole chain — pair sums, leapfrog,
@@ -10,11 +10,11 @@ The free-space probe (fidelity_64k.py) certifies the kernel numerics;
 this one closes the loop on the DF gradient response feeding back into
 the trajectory. Rows whose f64 signed distance sits within BAND of the
 0.02 contact threshold are excluded (the collision branch is
-discontinuous there — any fp perturbation flips it; same protocol as
-the r3 surface-tension-threshold exclusion) and their count is
-asserted rare.
+discontinuous there — any fp perturbation flips it; the same
+protocol as the surface-tension-threshold exclusion) and their count
+is asserted rare.
 
-Run ON TPU:  python experiments/fidelity_collision.py
+Run on the accelerator:  python experiments/fidelity_collision.py
 """
 
 import os
@@ -35,11 +35,11 @@ from libclsph_tpu.scene.scene import Scene
 
 platform = jax.devices()[0].platform
 print(f"platform={platform}", file=sys.stderr, flush=True)
-if platform != "tpu" and not os.environ.get("FIDELITY_ALLOW_CPU"):
-    sys.exit("refusing to run on CPU fallback (set FIDELITY_ALLOW_CPU=1)")
+if platform == "cpu" and not os.environ.get("FIDELITY_ALLOW_CPU"):
+    sys.exit("a 64k settle is slow on the CPU (set FIDELITY_ALLOW_CPU=1)")
 
 N = int(os.environ.get("FIDELITY_N", "65536"))
-# settle budget (substeps). Settling is CONDITION-driven (r4 verdict):
+# settle budget (substeps). Settling is CONDITION-driven:
 # fixed substep counts are a bad proxy for simulated time under the
 # adaptive CFL dt (48 and 420 both measured 0 contacts), so the loop
 # below advances in chunks until the DEVICE DF reports >= TARGET
@@ -50,13 +50,11 @@ SETTLE_CHUNK = 24
 TARGET_CONTACTS = int(os.environ.get("FIDELITY_TARGET", "256"))
 ROWS = 512
 BAND = 2e-6  # contact-threshold exclusion band (f32 ulp scale of d)
-# box.obj (the BASELINE matrix #2 container: floor + 4 walls, open
-# top) RETAINS the dam, so settled water rests inside the DF contact
-# band and contacts are sustained. cube.obj is a closed OBSTACLE
-# below the spawn lattice: the splash runs off its top edges and
-# falls forever (measured: 4008 settle substeps ended at min_y -104
-# with 2 predicted contacts — r5_deliver.log fidelity-collision-v2),
-# so a contact-driven settle can never converge there.
+# box.obj (floor + 4 walls, open top) RETAINS the dam, so settled
+# water rests inside the DF contact band and contacts are sustained.
+# cube.obj is a closed OBSTACLE below the spawn lattice: the splash
+# runs off its top edges and falls forever, so a contact-driven settle
+# can never converge there.
 SCENE = os.environ.get("FIDELITY_SCENE", "box")
 
 fluid = dict(fluid_density=998.29, dynamic_viscosity=3.5, restitution=0,
@@ -66,11 +64,8 @@ sim = dict(particles_count=N, particle_mass=0.05, simulation_time=3,
            target_fps=60, simulation_scale=0.1,
            constant_acceleration=dict(x=0, y=-9.8, z=0))
 params = derive_parameters(fluid, sim)
-cfg = StepConfig(neighbor_impl="pallas", pallas_variant="nl",
-                 max_candidates=96, max_candidates_sub=192,
-                 max_candidates_hit=96, force_query_rows=32,
-                 force_sub16=True, density_sub16=True,
-                 force_sub8=True, max_candidates_hit8=80)
+# the platform's neighbour path (libclsph_tpu/platform.py)
+cfg = StepConfig(max_candidates=96)
 cfg_probe = StepConfig(
     **{**cfg.__dict__, "adaptive_dt": False}
 )
@@ -110,19 +105,15 @@ while done < SETTLE_BUDGET:
     done += SETTLE_CHUNK
     if chunk_flags:
         # capacity overflow while settling (the compressing dam
-        # deepens the refined tables past the bench-scale caps). Grow
+        # deepens the candidate lists past the bench-scale cap). Grow
         # like the engine autotune and keep settling — a truncated
         # SETTLE substep only perturbs the (arbitrary) test state; the
         # PROBE substep below is asserted flag-free under the grown
-        # caps.
+        # cap.
         import dataclasses as _dc
         u = {}
         if chunk_flags & 1:  # FLAG_CAPACITY
             u["max_candidates"] = cfg.max_candidates * 2
-        if chunk_flags & 8:  # FLAG_CAPACITY_SUB
-            u["max_candidates_sub"] = cfg.max_candidates_sub + 96
-        if chunk_flags & 16:  # FLAG_CAPACITY_HIT
-            u["max_candidates_hit8"] = cfg.max_candidates_hit8 + 32
         print(f"  settle {done}: flags {chunk_flags} -> grow {u}",
               file=sys.stderr, flush=True)
         cfg = _dc.replace(cfg, **u)

@@ -1,12 +1,13 @@
-"""libclsph-tpu — a TPU-native Smoothed Particle Hydrodynamics framework.
+"""libclsph-tpu — a Smoothed Particle Hydrodynamics framework in JAX.
 
 A ground-up JAX/XLA/Pallas re-design with the capabilities of the
 OpenCL/CUDA reference library ``libclsph`` (see SURVEY.md): Tait-EOS
 compressible liquid SPH, Morton-grid neighbour search, triangle-mesh
 collision via precomputed signed distance fields, Houdini .geo/.bgeo
 frame export, checkpoint/resume, adaptive time stepping — plus
-multi-chip scaling over a ``jax.sharding.Mesh`` that the reference
-never had.
+multi-device scaling over a ``jax.sharding.Mesh`` that the reference
+never had. The hot density/force passes run as fused Pallas kernels
+on NVIDIA GPUs and as plain XLA elsewhere (libclsph_tpu/platform.py).
 """
 
 from .core.params import (

@@ -18,9 +18,9 @@ from __future__ import annotations
 
 import argparse
 import os
-import dataclasses
 import sys
 
+from . import platform
 from .engine.simulation import SPHSimulation
 from .engine.step import StepConfig
 from .io.houdini import HoudiniFileSaver
@@ -29,7 +29,7 @@ from .io.houdini import HoudiniFileSaver
 def build_arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="sph",
-        description="TPU-native SPH fluid simulation (libclsph-tpu)",
+        description="SPH fluid simulation in JAX (libclsph-tpu)",
     )
     ap.add_argument("fluid", help="fluid properties name (fluid_properties/<name>.json)")
     ap.add_argument(
@@ -38,68 +38,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("scene", help="scene OBJ name (scenes/<name>[.obj])")
     ap.add_argument("out_prefix", help="frames folder prefix")
     ap.add_argument("--partio", action="store_true", help="write .bgeo instead of .geo")
-    ap.add_argument(
-        "--neighbor-impl", choices=["tiles", "pallas", "exact"], default=None,
-        help="default: 'pallas' on TPU, 'tiles' elsewhere",
-    )
     ap.add_argument("--block-size", type=int, default=128)
     ap.add_argument("--max-candidates", type=int, default=64)
-    ap.add_argument("--tile-mode", choices=["direct", "mxu"], default="direct")
-    ap.add_argument(
-        "--pallas-variant", choices=["nl", "asm", "row", "fine", "asym"],
-        default="nl",
-        help="pallas kernel family (nl = gathered subblock lists, the "
-        "fastest measured at 64k-4M; asm = in-kernel assembly)",
-    )
-    ap.add_argument("--nl-query-rows", type=int, default=128)
-    ap.add_argument("--max-candidates-sub", type=int, default=192)
-    ap.add_argument("--max-candidates-hit", type=int, default=128)
-    ap.add_argument(
-        "--no-hit-compact", action="store_true",
-        help="disable the force pass's true-hit candidate compaction",
-    )
-    ap.add_argument(
-        "--force-query-rows", type=int, default=32, choices=[32, 128],
-        help="force-pass query granularity (32 = per-subgroup hit lists)",
-    )
-    ap.add_argument(
-        "--force-sub16", action=argparse.BooleanOptionalAction, default=True,
-        help="16-wide candidate subblocks for the q32 force pass",
-    )
-    ap.add_argument(
-        "--max-candidates-hit16", type=int, default=64,
-        help="per-subgroup capacity for the 16-wide force pass",
-    )
-    ap.add_argument(
-        "--density-sub16", action=argparse.BooleanOptionalAction, default=True,
-        help="16-wide candidate subblocks for the density pass too",
-    )
-    ap.add_argument(
-        "--force-sub8", action=argparse.BooleanOptionalAction, default=True,
-        help="8-wide candidate subblocks for the q32 force pass "
-        "(requires --density-sub16; single-chip only)",
-    )
-    ap.add_argument(
-        "--max-candidates-hit8", type=int, default=80,
-        help="per-subgroup capacity for the 8-wide force pass",
-    )
-    ap.add_argument(
-        "--tier2-frac", type=int, default=0,
-        help="two-tier candidate-capacity routing (0 = off)",
-    )
     ap.add_argument(
         "--sort-interval", type=int, default=4,
-        help="re-sort particles every k-th substep (single-chip only)",
-    )
-    ap.add_argument(
-        "--cand-interval", type=int, default=4,
-        help="rebuild candidate lists every k-th substep (Verlet-list "
-        "reuse; device-guarded, single-chip only; must divide "
-        "--sort-interval)",
-    )
-    ap.add_argument(
-        "--cand-slack", type=float, default=0.25,
-        help="candidate-reuse refine dilation as a fraction of h",
+        help="re-sort particles every k-th substep",
     )
     ap.add_argument(
         "--confirm", action="store_true",
@@ -126,11 +69,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "--halo-hops", type=int, default=1,
         help="ring exchange: ppermute hops per direction",
     )
-    ap.add_argument(
-        "--pretune", choices=["auto", "on", "off"], default="auto",
-        help="init-state capacity probe before the first compile "
-        "(engine/pretune.py); auto = on for >= 200k particles",
-    )
     ap.add_argument("--root", default=".", help="directory holding fluid_properties/ etc.")
     return ap
 
@@ -138,77 +76,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
 
-    if args.neighbor_impl is None:
-        import jax
-
-        args.neighbor_impl = (
-            "pallas" if jax.default_backend() == "tpu" else "tiles"
-        )
+    platform.enable_compile_cache()
     cfg = StepConfig(
-        neighbor_impl=args.neighbor_impl,
+        neighbor_impl=platform.neighbor_impl(),
         block_size=args.block_size,
         max_candidates=args.max_candidates,
-        tile_mode=args.tile_mode,
-        pallas_variant=args.pallas_variant,
-        nl_query_rows=args.nl_query_rows,
-        max_candidates_sub=args.max_candidates_sub,
-        max_candidates_hit=args.max_candidates_hit,
-        hit_compact=not args.no_hit_compact,
-        force_query_rows=args.force_query_rows,
-        force_sub16=args.force_sub16,
-        max_candidates_hit16=args.max_candidates_hit16,
-        density_sub16=args.density_sub16,
-        force_sub8=args.force_sub8 and not args.mesh,
-        max_candidates_hit8=args.max_candidates_hit8,
-        tier2_frac=args.tier2_frac,
         sort_interval=args.sort_interval,
-        cand_interval=args.cand_interval,
-        cand_slack=args.cand_slack,
     )
-    ap = build_arg_parser()
-    if args.mesh and cfg.cand_interval != 1 and cfg.neighbor_impl != "pallas":
-        # the sharded candidate carry is an nl-kernel feature; with the
-        # tiles impl quietly rebuild every substep (defaults) or error
-        # on an explicit request
-        if args.cand_interval != ap.get_default("cand_interval"):
-            print("--cand-interval > 1 with --mesh requires "
-                  "--neighbor-impl pallas", file=sys.stderr)
-            return -1
-        cfg = dataclasses.replace(cfg, cand_interval=1)
-    if (
-        cfg.cand_interval > 1
-        and cfg.sort_interval % cfg.cand_interval
-        and args.cand_interval == ap.get_default("cand_interval")
-    ):
-        # the user pinned --sort-interval but left --cand-interval at
-        # its default: clamp the default down to a divisor instead of
-        # failing the divisibility check below
-        import math
-
-        cfg = dataclasses.replace(
-            cfg,
-            cand_interval=math.gcd(cfg.cand_interval, cfg.sort_interval),
-        )
-    if cfg.cand_interval > 1 and cfg.sort_interval % cfg.cand_interval:
-        print("--cand-interval must divide --sort-interval", file=sys.stderr)
-        return -1
-    if cfg.cand_interval > 1 and (
-        cfg.neighbor_impl != "pallas" or cfg.pallas_variant != "nl"
-        or cfg.nl_query_rows < cfg.block_size
-    ):
-        # candidate reuse is a perf feature of the production nl shape;
-        # quietly rebuild every substep on other shapes
-        cfg = dataclasses.replace(cfg, cand_interval=1)
-    if cfg.density_sub16 and (
-        cfg.neighbor_impl != "pallas"
-        or min(cfg.block_size, cfg.nl_query_rows) < 128
-    ):
-        # the 16-granular density path needs the pallas nl shape at
-        # whole-128 query rows; quietly fall back elsewhere
-        cfg = dataclasses.replace(cfg, density_sub16=False)
-    if cfg.force_sub8 and not cfg.density_sub16:
-        # sub-8 rides the 16-granular tables; follows the same fallback
-        cfg = dataclasses.replace(cfg, force_sub8=False)
     mesh = None
     if args.mesh:
         import jax
@@ -226,7 +100,6 @@ def main(argv=None) -> int:
     simulation = SPHSimulation(
         step_config=cfg, mesh=mesh, exchange=args.exchange,
         halo_max=args.halo_max, halo_hops=args.halo_hops,
-        pretune={"auto": "auto", "on": True, "off": False}[args.pretune],
     )
     saver = HoudiniFileSaver(args.out_prefix, use_partio=args.partio)
 
@@ -241,8 +114,6 @@ def main(argv=None) -> int:
 
     if args.mesh and args.exchange in ("halo", "ring") and not args.halo_max:
         # default surface budget: every local block may be surface
-        from .ops.tiles import padded_count
-
         n = simulation.parameters.particles_count
         chunk = args.mesh * args.block_size
         padded = -(-n // chunk) * chunk

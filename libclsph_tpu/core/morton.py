@@ -1,9 +1,9 @@
 """Vectorised 3-D Morton (z-order) curve indexing.
 
-TPU-native equivalent of the reference's scalar bit-twiddling helpers
+Equivalent of the reference's scalar bit-twiddling helpers
 (``libclsph/common/util.h:4-62``): the same 10-bit-per-axis interleave,
 but expressed as ``jnp`` uint32 ops over whole arrays so the encode of a
-million cell coordinates is a handful of fused VPU instructions.
+million cell coordinates is a handful of fused vector instructions.
 
 The 10-bit limit (grid dims < 1024 per axis, asserted at
 sph_simulation.cpp:722-724) is inherited: codes are 30-bit.

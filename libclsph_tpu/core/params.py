@@ -1,6 +1,6 @@
 """Simulation parameters and precomputed smoothing-kernel coefficients.
 
-TPU-native re-design of the reference's shared host/device data model
+Re-design of the reference's shared host/device data model
 (``libclsph/common/structures.h:16-52``): instead of a 23-field C struct
 passed by value into every OpenCL kernel, parameters live in a frozen
 dataclass registered as a JAX pytree so the whole object can be closed
@@ -30,9 +30,9 @@ import jax.numpy as jnp
 GRID_CELL_SIDE_FACTOR = 2.0
 
 # Reference warns when N is not divisible by the preferred work-group
-# multiple (sph_simulation.cpp:16, :480-487). On TPU the analogous
-# preference is a multiple of the lane count so blocked kernels tile
-# evenly; we pad internally instead of warning.
+# multiple (sph_simulation.cpp:16, :480-487). The analogous preference
+# here is a multiple of the block size so blocked passes tile evenly;
+# we pad internally instead of warning.
 PREFERRED_MULTIPLE = 128
 
 

@@ -1,6 +1,6 @@
 """Particle state as a structure-of-arrays pytree.
 
-TPU-native replacement for the reference's 60-byte AoS ``particle``
+Replacement for the reference's 60-byte AoS ``particle``
 struct (``libclsph/common/structures.h:40-44``): separate contiguous
 ``jnp`` arrays per field so every pass is a dense vector op over
 well-tiled (N,) / (N,3) buffers instead of strided struct loads.

@@ -10,13 +10,14 @@ including the dt retry loop (:252-260), runs on device and only the
 final dt scalar ever needs to reach the host.
 
 Three neighbour backends:
-* ``exact``  — per-particle 27-cell gather (ops/neighbors.py),
+* ``exact`` — per-particle 27-cell gather (ops/neighbors.py),
   reference-structure parity. CPU correctness oracle only: its
-  irregular (N, 27*cap) gathers lower to tens of GB on TPU — which is
-  exactly why the tile designs below exist;
-* ``tiles``  — Morton block tiles in XLA (ops/tiles.py);
-* ``pallas`` — fused Pallas TPU kernels over the same candidate
-  machinery (ops/pallas/neighbor.py), the production path.
+  irregular (N, 27*cap) gathers grow to tens of GB at bench scale;
+* ``tiles`` — Morton block tiles in plain XLA (ops/tiles.py);
+* ``fused`` — the same block candidates feeding the fused GPU density
+  and force kernels (ops/pallas/neighbor_gpu.py).
+
+``StepConfig``'s default backend comes from libclsph_tpu/platform.py.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
+from .. import platform
 from ..core.params import SimulationParameters
 from ..core.state import ParticleState
 from ..ops import collisions as collisions_ops
@@ -37,22 +39,12 @@ from ..ops import interactions as interactions_ops
 from ..core import morton
 from ..ops import neighbors as neighbors_ops
 from ..ops import tiles as tiles_ops
+from ..ops.pallas import neighbor_gpu
 
 # Bits of the substep's device status flag (int32):
 FLAG_CAPACITY = 1  # block-level candidate / exact-path cell capacity
 FLAG_GRID_DIM = 2  # a grid axis reached the 10-bit Morton limit (1024)
 FLAG_EXCHANGE = 4  # ring halo_hops too small: a needed shard is out of reach
-FLAG_CAPACITY_SUB = 8  # refined subblock capacity (max_candidates_sub)
-FLAG_CAPACITY_HIT = 16  # hit-compacted force capacity (max_candidates_hit)
-FLAG_CAPACITY_T2 = 32  # two-tier overflow pool exhausted (tier2_frac)
-FLAG_CAND_STALE = 64  # reused candidate lists outran their slack margin
-# the capacity bits are reported separately so the engine's
-# autotune grows ONLY the overflowing table: r2's coupled doubling
-# re-grew every gather volume at once (2M measured: a block-cap
-# overflow at 96 doubled sub/hit too and cost ~25% throughput)
-FLAGS_ALL_CAPACITY = (
-    FLAG_CAPACITY | FLAG_CAPACITY_SUB | FLAG_CAPACITY_HIT | FLAG_CAPACITY_T2
-)
 
 
 @jax.tree_util.register_static
@@ -60,157 +52,35 @@ FLAGS_ALL_CAPACITY = (
 class StepConfig:
     """Static knobs of the substep pipeline."""
 
-    neighbor_impl: str = "tiles"  # 'tiles' | 'pallas' | 'exact'
+    # 'tiles' | 'fused' | 'exact'; default: platform.neighbor_impl()
+    neighbor_impl: str = dataclasses.field(
+        default_factory=platform.neighbor_impl
+    )
     cell_capacity: int = 96  # exact path: max particles per grid cell
-    block_size: int = 128  # tiles path: particles per tile
-    max_candidates: int = 64  # tiles path: candidate blocks per tile
-    tile_mode: str = "direct"  # tiles path: 'direct' | 'mxu'
-    # 'nl' (gathered 32-particle subblocks, ~3-4x less pair volume) |
-    # 'row' (128x128 prefetch-DMA) | 'fine' (32-query rows) | 'asym'
-    pallas_variant: str = "nl"
-    # nl variant: refined subblock cap. 128 fits the 1M cube dam-break
-    # with the rounded-box exact refine (measured max ~120 at impact);
-    # the engine autotune doubles it (and only it) on overflow.
-    max_candidates_sub: int = 128
-    # nl variant: query rows per kernel tile (128 | 64 | 32). Finer
-    # query blocks shrink the dilated query box and with it the
-    # refined candidate volume (~35% fewer pair tests at 32 vs 128 on
-    # a settled 262k cloud) at the cost of more grid steps.
-    nl_query_rows: int = 128
-    # nl/asm subblock refinement test. 'exact' (default): candidate
-    # block PARTICLES vs dilated 32-row query boxes
-    # (tiles.refine_candidates_exact) — kills the candidate-side AABB
-    # slack, ~45% less pair volume at 1M for ~10 ms of XLA prefilter.
-    # 'aabb': the round-2 subblock-AABB overlap test.
-    refine_mode: str = "exact"
-    # nl/asm force-pass candidate compaction. The density kernel emits
-    # per-subblock TRUE-HIT flags (any pair with r < h) nearly free —
-    # a handful of vreg ops on data already in registers — and the
-    # force pass then runs on the compacted true-hit lists
-    # (tiles.compact_hits): refine admits subblocks whose particles
-    # enter the dilated query BOX but not the union of query support
-    # spheres (~20% of admitted volume at 1M), and every force term
-    # carries the hard r<h cutoff clamp, so dropping no-hit subblocks
-    # is physics-exact.
-    hit_compact: bool = True
-    max_candidates_hit: int = 96  # force-pass capacity after compaction
-    # Force-pass query granularity (nl variant + hit_compact only).
-    # 32: the density kernel emits hit flags per 32-row QUERY SUBGROUP
-    # (4 planes instead of 1, ~2 extra vreg ops) and the force pass
-    # runs (32, 128) pair panels against per-subgroup hit lists
-    # (ops/pallas/neighbor_nl.py fused_forces_nl32) — measured
-    # true-hit volume 807 vs 1677 slots/particle at 1M
-    # (experiments/volume_probe.py). 128: the round-3 whole-block
-    # force pass. Only takes effect when nl_query_rows == 128.
-    force_query_rows: int = 128
-    # 16-wide candidate subblocks for the q32 force pass (force_query
-    # rows 32 only): the density kernel emits flags per HALF-subblock
-    # (hit_sub=16) and the force pass gathers/computes 16-particle
-    # candidate rows — measured true-hit volume 552 vs 770
-    # slots/particle (experiments/volume_probe.py; p99 per-subgroup
-    # count 48, max 55 -> max_candidates_hit16 default 64).
-    force_sub16: bool = False
-    max_candidates_hit16: int = 64
-    # 16-wide candidate subblocks for the DENSITY pass too: the exact
-    # refine emits 16-granular ids directly (sub=8 per block — the
-    # test is granularity-generic) and the density kernel consumes a
-    # 16-wide pos pack. Admitted volume ~1250 vs 1679 slots/particle
-    # at (q128, c32) (experiments/volume_probe.py ladder; the 32-wide
-    # refine is near-true-hit, so the cut is pure granularity).
-    # Requires force_query_rows=32 + force_sub16 (all candidate tables
-    # become 16-granular); incompatible with tier2 (tier-2 force runs
-    # 32-wide whole-block panels). NOTE: max_candidates_sub then
-    # counts 16-wide subblocks — size it ~1.5x the 32-wide cap.
-    density_sub16: bool = False
-    # 8-wide candidate subblocks for the q32 force pass (r5; requires
-    # density_sub16 + force_sub16): the density kernel emits flags per
-    # HALF of each 16-granular candidate slot (hit_sub=8) and the
-    # force pass gathers 8-particle pack rows paired two-per-128-lane
-    # stream row (ops/pallas/neighbor_nl.py fused_forces_nl32_c8).
-    # Finer granularity cuts the dead-lane share of the force stream
-    # (~552 -> ~384 true-hit lanes/particle at 1M) and the streamed
-    # window (256 vs 512 B/slot). Single-chip only (self-exclusion by
-    # slot-arithmetic gid reconstruction); the sharded path keeps
-    # sub16. Incompatible with density_gate.
-    force_sub8: bool = False
-    max_candidates_hit8: int = 96
-    # Two-tier candidate-capacity routing (nl variant, nl_query_rows
-    # 128 only). 0 disables. k > 0: blocks whose refined count exceeds
-    # max_candidates_sub are routed to a pool of ceil(nb/k) tier-2
-    # slots processed at tier2_mult x the base capacities, instead of
-    # a GLOBAL capacity regrowth that doubles every gather/DMA volume
-    # (gather + kernel DMA scale with static capacity, not counts).
-    # The engine autotune enables this (k=8) on the first subblock
-    # overflow and halves k if the pool itself fills
-    # (tiles.route_overflow; FLAG_CAPACITY_T2).
-    tier2_frac: int = 0
-    tier2_mult: int = 2  # tier-2 capacity = tier2_mult * base capacity
-    # nl/asm pair-distance path. 'vpu' (default): elementwise
-    # dx^2+dy^2+dz^2. 'mxu': one K=5 dot on the matrix unit from
-    # domain-centred coordinates — measured SLOWER on v5e (the MXU is
-    # latency-bound at contraction depth 5 and HIGHEST precision costs
-    # 6 passes; +~60 ms/substep at 1M); kept as a documented variant.
-    pair_r2: str = "vpu"
+    block_size: int = 128  # tiles/fused: particles per block
+    max_candidates: int = 64  # tiles/fused: candidate blocks per block
     # Re-sort particles every k-th substep instead of every substep
     # (frame_jit fast path + bench; 1 = reference behaviour). Safe for
-    # tiles/pallas: candidates are geometric (block boxes from CURRENT
-    # positions, recomputed every substep) and every kernel term
-    # carries the hard r<h cutoff, so a stale ORDER only costs pruning
+    # tiles/fused: candidates are geometric (block boxes from CURRENT
+    # positions, recomputed every substep) and every pair term carries
+    # the hard r<h cutoff, so a stale ORDER only costs pruning
     # efficiency — particles drift ~1e-3 cell/substep, so locality is
     # intact for small k and capacity flags catch the pathological
     # case. Skipped substeps save the key sort + full-state permute.
-    # Not supported for the 'exact' impl (needs sorted codes) or the
-    # sharded engine (Morton order is load-bearing for shard ownership).
+    # Not supported for the 'exact' impl (needs sorted codes).
     sort_interval: int = 1
-    # Rebuild the candidate machinery (block search + subblock refine)
-    # every k-th substep; off-substeps REUSE the carried refined lists
-    # (Verlet-list scheme). The build substep runs the search/refine
-    # with h inflated to (1 + cand_slack) * h, so the lists stay
-    # supersets of the true neighbourhood while the max relative pair
-    # displacement since the build is below cand_slack * h — guarded
-    # on device (FLAG_CAND_STALE: positions are anchored at build time
-    # and compared each reuse substep). The kernels keep the exact
-    # r < h cutoff, so reuse is physics-exact while the guard holds
-    # (supersets never change sums). The CFL dt bounds per-substep
-    # displacement by h/2 (a dt^2 + v dt = h/2), so the guard — not
-    # the slack — is the correctness backstop near impacts.
-    # Constraints: nl variant at whole-block query rows, no tier2;
-    # reuse substeps must also skip the sort (ids index the sorted
-    # order), so sort_interval must be a multiple of cand_interval.
-    # Consumed by the bench path (substep_jit + cand_in) AND by
-    # frame_jit / the engine, where the rebuild-vs-reuse decision is
-    # PREDICTIVE (displacement-since-anchor checked before each
-    # substep — see frame_jit).
-    cand_interval: int = 1
-    cand_slack: float = 0.25  # refine dilation, fraction of h
-    # Gate the REUSE-substep density pass per (query subgroup,
-    # candidate tile) by the build substep's dilated hit flags
-    # (ops/pallas/neighbor_nl.py fused_density_gated16): the carried
-    # refined list is still gathered in full, but the density kernel
-    # computes only the (32, 128) panels whose tile had a pair within
-    # (1 + cand_slack) * h at build time — supersets of the true tile
-    # hits while the staleness guard holds, so skipping the rest is
-    # physics-exact (the same argument as hit_compact). Only active on
-    # the density_sub16 + cand_interval > 1 shape. MEASURED A LOSER on
-    # v5e (r4: 264 vs 188 ms at 1M, 16.5 vs 12.6 at 64k — the 4x
-    # per-subgroup narrow dots + per-panel predication cost more than
-    # the ~40% pair-volume cut); default OFF, kept as an
-    # equivalence-tested variant.
-    density_gate: bool = False
     adaptive_dt: bool = True
     # frame_jit dispatch bound: a stiff impact can floor the adaptive
-    # dt at DT_MIN (1e-5 s), blowing a frame up to ~1.7k substeps — an
-    # unbounded single dispatch runs for many minutes and device
-    # runtimes (notably tunneled ones) kill it as hung. The engine
-    # loops frame_jit until the frame's time budget is spent, at most
-    # this many substeps per dispatch.
+    # dt at DT_MIN (1e-5 s), blowing a frame up to ~1.7k substeps; the
+    # engine loops frame_jit until the frame's time budget is spent, at
+    # most this many substeps per dispatch, so no single dispatch runs
+    # for minutes.
     substeps_per_dispatch: int = 64
 
     def tile_config(self) -> tiles_ops.TileConfig:
         return tiles_ops.TileConfig(
             block_size=self.block_size,
             max_candidates=self.max_candidates,
-            mode=self.tile_mode,
         )
 
 
@@ -248,29 +118,40 @@ def _density_forces_exact(
     return density, pressure, accel, overflow.astype(jnp.int32) * FLAG_CAPACITY
 
 
-def _density_forces_tiles(
-    state: ParticleState,
-    real: jnp.ndarray,
+def block_passes(
+    blocked: tiles_ops.BlockedFields,
+    cand: jnp.ndarray,
+    count: jnp.ndarray,
     params: SimulationParameters,
     config: StepConfig,
+    cand_fields: Optional[tiles_ops.BlockedFields] = None,
+    force_fields=None,
 ):
+    """Density, pressure and acceleration of the query ``blocked`` over
+    their candidate lists, by ``config.neighbor_impl``: the XLA tiles
+    passes or the fused GPU kernels (ops/pallas/neighbor_gpu.py).
+
+    ``cand_fields`` is the block table ``cand`` indexes (default:
+    ``blocked``); ``force_fields(blocked)`` rebuilds it with the fresh
+    density/pressure for the force pass (default: ``blocked`` itself).
+    The sharded step passes its exchanged tables here. Returns flat
+    (n,), (n,), (n, 3); padding rows carry rest density and zero
+    pressure.
+    """
     terms = params.precomputed()
     cfg = config.tile_config()
-
-    blocked = tiles_ops.make_blocked(
-        state.position,
-        state.velocity,
-        state.density,
-        state.pressure,
-        real,
-        cfg.block_size,
-    )
-    bmin, bmax = tiles_ops.split_block_bounds(blocked.position, blocked.real)
-    cand, count, overflow = tiles_ops.candidate_blocks_auto(
-        bmin, bmax, params.h, cfg.max_candidates
-    )
-
-    density = tiles_ops.density_pass(blocked, cand, count, params, terms, cfg)
+    real = blocked.real.reshape(-1)
+    cf = blocked if cand_fields is None else cand_fields
+    if config.neighbor_impl == "fused":
+        density = neighbor_gpu.fused_density(
+            neighbor_gpu.pack_density(blocked), neighbor_gpu.pack_density(cf),
+            cand, count, params, terms,
+        )
+    else:
+        density = tiles_ops.density_pass(
+            blocked, cand, count, params, terms, cfg, cand_fields=cf
+        )
+    density = jnp.where(real, density, params.fluid_density)
     pressure = interactions_ops.tait_pressure(density, params)
     pressure = jnp.where(real, pressure, 0.0)
 
@@ -278,751 +159,42 @@ def _density_forces_tiles(
         density=density.reshape(blocked.density.shape),
         pressure=pressure.reshape(blocked.pressure.shape),
     )
-    accel = tiles_ops.force_pass(blocked, cand, count, params, terms, cfg)
-    return density, pressure, accel, overflow.astype(jnp.int32) * FLAG_CAPACITY
+    cf = blocked if force_fields is None else force_fields(blocked)
+    if config.neighbor_impl == "fused":
+        mass = params.particle_mass
+        accel = neighbor_gpu.fused_forces(
+            neighbor_gpu.pack_forces(blocked, mass), density,
+            neighbor_gpu.pack_forces(cf, mass), cand, count, params, terms,
+        )
+    else:
+        accel = tiles_ops.force_pass(
+            blocked, cand, count, params, terms, cfg, cand_fields=cf
+        )
+    return density, pressure, accel
 
 
-def _density_forces_pallas(
+def _density_forces_blocks(
     state: ParticleState,
     real: jnp.ndarray,
     params: SimulationParameters,
     config: StepConfig,
-    cand_in=None,
 ):
-    """Fused Pallas kernels (ops/pallas/) behind the same candidate
-    machinery as the tiles path; variant picked by config.pallas_variant.
-
-    Returns a 5-tuple (density, pressure, accel, flags, cand_out);
-    ``cand_out`` is the carried candidate state for
-    StepConfig.cand_interval reuse (None for non-nl variants)."""
-    if config.pallas_variant in ("nl", "asm"):
-        return _density_forces_pallas_nl(
-            state, real, params, config, cand_in=cand_in
-        )
-    if cand_in is not None:
-        raise ValueError("cand_interval reuse requires the nl variant")
-    if config.pallas_variant == "asym":
-        from ..ops.pallas import neighbor_asym as pallas_neighbor
-    else:
-        from ..ops.pallas import neighbor as pallas_neighbor
-    q_div = 4 if config.pallas_variant == "fine" else 1
-
-    terms = params.precomputed()
-    cfg = config.tile_config()
-
+    """Block candidate search on the sorted, padded state, then
+    :func:`block_passes`."""
     blocked = tiles_ops.make_blocked(
         state.position,
         state.velocity,
         state.density,
         state.pressure,
         real,
-        cfg.block_size,
+        config.block_size,
     )
     bmin, bmax = tiles_ops.split_block_bounds(blocked.position, blocked.real)
     cand, count, overflow = tiles_ops.candidate_blocks_auto(
-        bmin, bmax, params.h, cfg.max_candidates
+        bmin, bmax, params.h, config.max_candidates
     )
-
-    mk = dict(mass=params.particle_mass)
-    if config.pallas_variant != "asym":
-        mk["q_div"] = q_div
-    planes = pallas_neighbor.make_planes(
-        state.position,
-        state.velocity,
-        state.density,
-        state.pressure,
-        real,
-        cfg.block_size,
-        **mk,
-    )
-    density = pallas_neighbor.fused_density(planes, cand, count, params, terms, real)
-    pressure = interactions_ops.tait_pressure(density, params)
-    pressure = jnp.where(real, pressure, 0.0)
-    # repack with the fresh density/pressure for the force pass
-    planes = pallas_neighbor.make_planes(
-        state.position,
-        state.velocity,
-        density,
-        pressure,
-        real,
-        cfg.block_size,
-        **mk,
-    )
-    accel = pallas_neighbor.fused_forces(
-        planes, cand, count, params, terms, real, density
-    )
-    return (
-        density, pressure, accel,
-        overflow.astype(jnp.int32) * FLAG_CAPACITY, None,
-    )
-
-
-def _density_forces_pallas_nl(
-    state: ParticleState,
-    real: jnp.ndarray,
-    params: SimulationParameters,
-    config: StepConfig,
-    cand_in=None,
-):
-    """Round-2 production path: block candidates refined to 32-particle
-    subblocks, data pre-gathered into dense lane-packed tiles
-    (ops/pallas/neighbor_nl.py) — ~3-4x less pair volume than the
-    block-granularity kernels."""
-    from ..ops.pallas import neighbor_nl as nl
-
-    terms = params.precomputed()
-    cfg = config.tile_config()
-    r2_mxu = config.pair_r2 == "mxu"
-    # centre coordinates for the MXU-r2 cancellation (pair math only
-    # sees differences, so this is physically neutral); real-particle
-    # median-ish centre via the sorted cloud's min/max
-    center = None
-    if r2_mxu:
-        real_pos = jnp.where(real[:, None], state.position, state.position[0])
-        center = 0.5 * (
-            jnp.min(real_pos, axis=0) + jnp.max(real_pos, axis=0)
-        )
-
-    q_rows = min(config.nl_query_rows, cfg.block_size)
-    q_rep = cfg.block_size // q_rows
-    asm = config.pallas_variant == "asm"
-    # two-tier overflow routing (see StepConfig.tier2_frac): the refine
-    # emits lists at the TIER-2 width; tier-1 consumers slice [:c1]
-    use_t2 = config.tier2_frac > 0 and not asm and q_rep == 1
-    dsub16 = config.density_sub16
-    if dsub16 and (
-        asm or q_rep > 1
-        or q_rows != 128  # the q32 force pass engages only at 128 rows
-        or config.force_query_rows != 32
-        or not config.force_sub16
-        or not config.hit_compact
-    ):
-        raise ValueError(
-            "density_sub16 requires the nl variant at whole-128 query "
-            "rows (block_size >= 128) with force_query_rows=32 + "
-            "force_sub16 + hit_compact"
-        )
-    if config.force_sub8 and not dsub16:
-        raise ValueError(
-            "force_sub8 requires density_sub16 (16-granular tables)"
-        )
-    if config.force_sub8 and config.density_gate:
-        raise ValueError("force_sub8 is incompatible with density_gate")
-    reuse_on = config.cand_interval > 1
-    if reuse_on and (asm or q_rep > 1):
-        raise ValueError(
-            "cand_interval reuse requires the nl variant at "
-            "whole-block query rows"
-        )
-    # build-substep search/refine dilation (see StepConfig.cand_interval)
-    h_search = (
-        params.h * (1.0 + config.cand_slack) if reuse_on else params.h
-    )
-    # gated reuse density (StepConfig.density_gate): the carry grows a
-    # 4th leaf, the packed dilated tile-hit nibbles (not under tier2 —
-    # the two-tier path runs the ungated kernels)
-    gate_on = reuse_on and dsub16 and config.density_gate and not use_t2
-    cand_mask = None
-    sub = cfg.block_size // (nl.SUB16 if dsub16 else nl.SUB)
-    cap_sub = config.max_candidates_sub * (
-        config.tier2_mult if use_t2 else 1
-    )
-    # truncation-safe self range: the query's own subblock ids are
-    # [parent_block*sub, parent_block*sub + sub) (tiles._self_priority_sort)
-    nb_q = (real.shape[0] // cfg.block_size) * q_rep
-    self_lo = (jnp.arange(nb_q, dtype=jnp.int32) // q_rep) * sub
-    if cand_in is None:
-        blocked = tiles_ops.make_blocked(
-            state.position,
-            state.velocity,
-            state.density,
-            state.pressure,
-            real,
-            cfg.block_size,
-        )
-        bmin, bmax = tiles_ops.split_block_bounds(
-            blocked.position, blocked.real
-        )
-        cand, count, ovf = tiles_ops.candidate_blocks_auto(
-            bmin, bmax, h_search, cfg.max_candidates
-        )
-        if q_rep > 1:
-            # finer query candidate lists; each child block reuses its
-            # parent's coarse candidate list (row repeat)
-            cand_q = jnp.repeat(cand, q_rep, axis=0)
-            count_q = jnp.repeat(count, q_rep, axis=0)
-        else:
-            cand_q, count_q = cand, count
-        if config.refine_mode == "exact":
-            # gap-split query boxes (the bmin/bmax already computed for
-            # the block search): measured at 1M vs contiguous 32-row
-            # sub-boxes, gap splitting cuts the admitted volume
-            # 2519 -> 2084 slots/particle and — decisive for capacity —
-            # the TAIL from 188 to 104 subblocks (contiguous quarter
-            # boxes straddle the same Morton jumps split_block_bounds
-            # was built to absorb; see experiments/volume_probe.py)
-            if q_rep > 1:
-                nq = blocked.position.shape[0] * q_rep
-                qlo, qhi = tiles_ops.split_block_bounds(
-                    blocked.position.reshape(nq, q_rows, 3),
-                    blocked.real.reshape(nq, q_rows),
-                )
-            else:
-                qlo, qhi = bmin, bmax
-            cand_sub, count_sub, ovf2 = tiles_ops.refine_candidates_exact(
-                cand_q, count_q, qlo, qhi, blocked.position, h_search, sub,
-                cap_sub, self_lo=self_lo, self_width=sub,
-            )
-        else:
-            sub_lo, sub_hi = tiles_ops.subblock_bounds(
-                blocked.position, blocked.real, sub
-            )
-            if q_rep > 1:
-                qlo, qhi = tiles_ops.subblock_bounds(
-                    blocked.position, blocked.real, q_rep
-                )
-                qlo, qhi = qlo[:, None, :], qhi[:, None, :]
-            else:
-                qlo, qhi = bmin, bmax
-            cand_sub, count_sub, ovf2 = tiles_ops.refine_candidates(
-                cand_q, count_q, qlo, qhi, sub_lo, sub_hi, h_search, sub,
-                cap_sub, self_lo=self_lo, self_width=sub,
-            )
-        flags = (
-            ovf.astype(jnp.int32) * FLAG_CAPACITY
-            + ovf2.astype(jnp.int32) * FLAG_CAPACITY_SUB
-        )
-        pos_anchor = state.position
-    else:
-        # reuse the carried lists (StepConfig.cand_interval): they were
-        # built against pos_anchor with threshold h_search = (1+slack)h;
-        # a pair can have closed by at most 2 * max displacement since
-        # the anchor, so they remain supersets of the true r < h
-        # neighbourhood while 2 * D_max <= slack * h. (The same bound
-        # covers the dilated tile-hit nibbles of the gated density.)
-        if gate_on:
-            cand_sub, count_sub, pos_anchor, cand_mask = cand_in
-        else:
-            cand_sub, count_sub, pos_anchor = cand_in
-        d2 = jnp.sum((state.position - pos_anchor) ** 2, axis=1)
-        d2max = jnp.max(jnp.where(real, d2, 0.0))
-        stale = 4.0 * d2max > (config.cand_slack * params.h) ** 2
-        flags = stale.astype(jnp.int32) * FLAG_CAND_STALE
-
-    if use_t2:
-        mass = params.particle_mass
-        B = cfg.block_size
-        q_pos, _ = nl.make_query_planes(
-            state.position, state.velocity, state.density, state.pressure,
-            real, B, mass=mass, center=center,
-        )
-        if dsub16:
-            # fully 16-granular two-tier routing (the unified scale
-            # config): both tiers consume the c16 pos/force packs
-            c_pos_pack = nl.make_c16_pos_pack(
-                state.position, real, center=center
-            )
-        else:
-            c_pos_pack, _ = nl.make_csub_packs(
-                state.position, state.velocity, state.density,
-                state.pressure, real, mass=mass, center=center,
-            )
-
-        def make_q_force(density, pressure):
-            return nl.make_query_planes(
-                state.position, state.velocity, density, pressure,
-                real, B, mass=mass, center=center,
-            )[1]
-
-        def make_c_force_pack(density, pressure):
-            return nl.make_csub_packs(
-                state.position, state.velocity, density, pressure,
-                real, mass=mass, center=center,
-            )[1]
-
-        def make_c16_pack(density, pressure):
-            return nl.make_c16_force_pack(
-                state.position, state.velocity, density, pressure,
-                real, mass=mass, center=center, with_gid=False,
-            )
-
-        def make_c8_pack(density, pressure):
-            return nl.make_c8_force_pack(
-                state.position, state.velocity, density, pressure,
-                real, mass=mass, center=center,
-            )
-
-        cand_out_t2 = (
-            (cand_sub, count_sub, pos_anchor) if reuse_on else None
-        )
-        return nl_two_tier_passes(
-            q_pos, c_pos_pack, make_q_force, make_c_force_pack,
-            real, params, terms, config, r2_mxu,
-            cand_sub, count_sub, self_lo, sub, flags,
-            make_c16_pack=make_c16_pack,
-            make_c8_pack=make_c8_pack,
-        ) + (cand_out_t2,)
-
-    mass = params.particle_mass
-    make_cpacks = nl.make_cparent_packs if asm else nl.make_csub_packs
-    fused_density = nl.fused_density_asm if asm else nl.fused_density_nl
-    fused_forces = nl.fused_forces_asm if asm else nl.fused_forces_nl
-
-    q_pos, _ = nl.make_query_planes(
-        state.position, state.velocity, state.density, state.pressure,
-        real, q_rows, mass=mass, center=center,
-    )
-    if dsub16:
-        c_pos_pack = nl.make_c16_pos_pack(state.position, real, center=center)
-    else:
-        c_pos_pack, _ = make_cpacks(
-            state.position, state.velocity, state.density, state.pressure,
-            real, mass=mass, center=center,
-        )
-    force_q32 = (
-        config.force_query_rows == 32
-        and config.hit_compact
-        and not asm
-        and q_rows == 128
-    )
-    sub16 = force_q32 and config.force_sub16
-    sub8 = sub16 and dsub16 and config.force_sub8
-    if force_q32:
-        # per-QUERY-SUBGROUP hit lists: 807 vs 1677 true-hit
-        # slots/particle at 1M (experiments/volume_probe.py), no extra
-        # refine work — the density kernel's flags carry the split.
-        # force_sub16 narrows the flags to HALF-subblocks (hit_sub=16)
-        # for the 16-wide force pass: 552 slots/particle.
-        if gate_on and cand_in is not None:
-            # reuse substep: density gated by the carried dilated
-            # tile-hit nibbles (see StepConfig.density_gate)
-            density, hits = nl.fused_density_gated16(
-                q_pos, c_pos_pack, cand_sub, count_sub, cand_mask,
-                params, terms, real,
-            )
-        elif gate_on:
-            # build substep: also emit the dilated per-tile flags the
-            # reuse substeps will gate on
-            density, hits, hits2 = fused_density(
-                q_pos, c_pos_pack, cand_sub, count_sub, params, terms,
-                real, r2_mxu=r2_mxu, want_hits=True, hit_groups=nl.QG,
-                hit_sub=nl.SUB16, c16=True,
-                hit2_h=params.h * (1.0 + config.cand_slack),
-            )
-            cand_mask = nl.pack_tile_nibbles(hits2, cand_sub.shape[0])
-        else:
-            density, hits = fused_density(
-                q_pos, c_pos_pack, cand_sub, count_sub, params, terms,
-                real, r2_mxu=r2_mxu, want_hits=True, hit_groups=nl.QG,
-                hit_sub=(
-                    nl.SUB8 if sub8
-                    else (nl.SUB16 if sub16 else nl.SUB)
-                ),
-                c16=dsub16,
-            )
-        if sub8:
-            # 16-granular ids -> 8-granular half ids (slot 2j covers
-            # half 0 of cand_sub[i, j]), matching the hit_sub=8 flag
-            # layout (flag slot k of a tile = 8-lane run k)
-            sent = tiles_ops.REFINE_SENTINEL
-            twice = jnp.where(cand_sub == sent, sent, cand_sub * 2)
-            ids8 = jnp.stack(
-                [twice, jnp.where(cand_sub == sent, sent, twice + 1)],
-                axis=-1,
-            ).reshape(cand_sub.shape[0], -1)
-            cand_f, count_f, ovf3 = tiles_ops.compact_hits(
-                jnp.repeat(ids8, nl.QG, axis=0),
-                hits[:, : ids8.shape[1]],
-                config.max_candidates_hit8,
-                self_lo=jnp.repeat(self_lo * 2, nl.QG),
-                self_width=2 * sub,
-            )
-        elif dsub16:
-            # candidate ids are already 16-granular (refine at sub=8):
-            # flags are slot-aligned with cand_sub, no interleave
-            cand_f, count_f, ovf3 = tiles_ops.compact_hits(
-                jnp.repeat(cand_sub, nl.QG, axis=0),
-                hits[:, : cand_sub.shape[1]],
-                config.max_candidates_hit16,
-                self_lo=jnp.repeat(self_lo, nl.QG),
-                self_width=sub,
-            )
-        elif sub16:
-            sent = tiles_ops.REFINE_SENTINEL
-            twice = jnp.where(cand_sub == sent, sent, cand_sub * 2)
-            ids16 = jnp.stack(
-                [twice, jnp.where(cand_sub == sent, sent, twice + 1)],
-                axis=-1,
-            ).reshape(cand_sub.shape[0], -1)  # slot j -> id16 of half j%2
-            cand_f, count_f, ovf3 = tiles_ops.compact_hits(
-                jnp.repeat(ids16, nl.QG, axis=0),
-                hits[:, : ids16.shape[1]],
-                config.max_candidates_hit16,
-                self_lo=jnp.repeat(self_lo * 2, nl.QG),
-                self_width=2 * sub,
-            )
-        else:
-            # per-subgroup caps halve (≈0.48x mean volume per subgroup)
-            cap32 = max(32, config.max_candidates_hit // 2)
-            cand_f, count_f, ovf3 = tiles_ops.compact_hits(
-                jnp.repeat(cand_sub, nl.QG, axis=0),
-                hits[:, : cand_sub.shape[1]],
-                cap32,
-                self_lo=jnp.repeat(self_lo, nl.QG), self_width=sub,
-            )
-        flags = flags + ovf3.astype(jnp.int32) * FLAG_CAPACITY_HIT
-    elif config.hit_compact:
-        density, hits = fused_density(
-            q_pos, c_pos_pack, cand_sub, count_sub, params, terms, real,
-            r2_mxu=r2_mxu, want_hits=True,
-        )
-        cand_f, count_f, ovf3 = tiles_ops.compact_hits(
-            cand_sub, hits[:, : cand_sub.shape[1]], config.max_candidates_hit,
-            self_lo=self_lo, self_width=sub,
-        )
-        flags = flags + ovf3.astype(jnp.int32) * FLAG_CAPACITY_HIT
-    else:
-        density = fused_density(
-            q_pos, c_pos_pack, cand_sub, count_sub, params, terms, real,
-            r2_mxu=r2_mxu,
-        )
-        cand_f, count_f = cand_sub, count_sub
-    if reuse_on:
-        cand_out = (cand_sub, count_sub, pos_anchor) + (
-            (cand_mask,) if gate_on else ()
-        )
-    else:
-        cand_out = None
-    pressure = interactions_ops.tait_pressure(density, params)
-    pressure = jnp.where(real, pressure, 0.0)
-
-    _, q_force = nl.make_query_planes(
-        state.position, state.velocity, density, pressure,
-        real, q_rows, mass=mass, center=center,
-    )
-    _, c_force_pack = make_cpacks(
-        state.position, state.velocity, density, pressure, real, mass=mass,
-        center=center,
-    )
-    if sub8:
-        c8_pack = nl.make_c8_force_pack(
-            state.position, state.velocity, density, pressure, real,
-            mass=mass, center=center,
-        )
-        accel = nl.fused_forces_nl32_c8(
-            q_force, c8_pack, cand_f, count_f, params, terms, real,
-            density, r2_mxu=r2_mxu,
-        )
-    elif sub16:
-        c16_pack = nl.make_c16_force_pack(
-            state.position, state.velocity, density, pressure, real,
-            mass=mass, center=center, with_gid=False,
-        )
-        accel = nl.fused_forces_nl32_c16(
-            q_force, c16_pack, cand_f, count_f, params, terms, real,
-            density, r2_mxu=r2_mxu,
-        )
-    elif force_q32:
-        accel = nl.fused_forces_nl32(
-            q_force, c_force_pack, cand_f, count_f, params, terms, real,
-            density, r2_mxu=r2_mxu,
-        )
-    else:
-        accel = fused_forces(
-            q_force, c_force_pack, cand_f, count_f, params, terms, real,
-            density, r2_mxu=r2_mxu,
-        )
-    return density, pressure, accel, flags, cand_out
-
-
-def nl_two_tier_passes(
-    q_pos: jnp.ndarray,
-    c_pos_pack: jnp.ndarray,
-    make_q_force,
-    make_c_force_pack,
-    real: jnp.ndarray,
-    params: SimulationParameters,
-    terms,
-    config: StepConfig,
-    r2_mxu: bool,
-    cand_full: jnp.ndarray,
-    count_sub: jnp.ndarray,
-    self_lo: Optional[jnp.ndarray],
-    sub: int,
-    flags: jnp.ndarray,
-    fix_density=None,
-    make_c16_pack=None,
-    make_c8_pack=None,
-):
-    """Two-tier density/force passes (see StepConfig.tier2_frac).
-
-    Engine-agnostic core shared by the single-chip path
-    (:func:`_density_forces_pallas_nl`) and the sharded path
-    (``parallel/sharded_step._nl_passes``): the caller supplies the
-    prebuilt query/candidate position packs plus ``make_q_force`` /
-    ``make_c_force_pack`` closures that rebuild the force-side planes
-    from the merged (density, pressure) — the sharded caller's
-    candidate closure performs the halo/all-gather exchange, so the
-    tier routing itself stays shard-local with no extra collectives.
-
-    ``cand_full`` (nb, c2) is the refined list at the TIER-2 width
-    (c2 = tier2_mult * max_candidates_sub, self-priority sorted, so
-    the first c1 slots of a non-heavy row hold its whole list). Rows
-    with count > c1 are routed to nb2 = ceil(nb / tier2_frac) tier-2
-    slots (tiles.route_overflow); tier-1 zeroes their counts and the
-    per-block results merge by scatter over the distinct routed rows.
-    Physics-exact: both tiers run the identical kernels over identical
-    (sorted) candidate lists — the split only changes which dispatch a
-    block's accumulation happens in, not its order.
-
-    Tier-2 always runs whole-block (q128) force panels: the heavy rows
-    are few, so the q32 subgroup machinery's savings don't pay there.
-
-    ``fix_density``: optional hook applied to the merged density before
-    the force planes are rebuilt (the sharded engine resets sentinel
-    rows to the rest density).
-
-    ``make_c16_pack``: optional (density, pressure) -> 16-wide force
-    pack closure; when given and config.force_sub16 is set, TIER-1
-    forces run the 16-wide q32 kernel (fused_forces_nl32_c16). Tier-2
-    stays at 32-wide whole-block panels (heavy rows are few). The
-    sharded caller does not provide it (its pack closures perform the
-    neighbour exchange; a 16-wide exchange pack is not built).
-    """
-    from ..ops.pallas import neighbor_nl as nl
-
-    nb = cand_full.shape[0]
-    B = real.shape[0] // nb
-    c1 = config.max_candidates_sub
-    nb2 = -(-nb // config.tier2_frac)
-    idx, used, count1, pool_ovf = tiles_ops.route_overflow(count_sub, c1, nb2)
-    flags = flags + pool_ovf.astype(jnp.int32) * FLAG_CAPACITY_T2
-    cand1 = cand_full[:, :c1]
-    cand2 = jnp.take(cand_full, idx, axis=0)
-    count2 = jnp.where(used, jnp.take(count_sub, idx), 0)
-    self_lo2 = None if self_lo is None else jnp.take(self_lo, idx)
-
-    q_pos2 = jnp.take(q_pos, idx, axis=0)
-    real2 = jnp.take(real.reshape(nb, B), idx, axis=0).reshape(-1)
-
-    force_q32 = (
-        config.force_query_rows == 32 and config.hit_compact and B == 128
-    )
-    sub16 = force_q32 and config.force_sub16 and make_c16_pack is not None
-    # FULLY 16-granular two-tier routing (the r4 unified scale config):
-    # the candidate table and pos pack are 16-granular (density_sub16),
-    # so BOTH tiers run the c16 kernels — tier-2 heavy rows keep the
-    # c16 pair-volume advantage instead of falling back to 32-wide
-    # whole-block panels. Requires sub16 (the c16 force pack).
-    c16_all = config.density_sub16 and sub16
-    # sub-8 force streams under tier2 (both tiers run the c8 kernels;
-    # the sharded caller passes no make_c8_pack and keeps sub16)
-    sub8 = c16_all and config.force_sub8 and make_c8_pack is not None
-    hit_sub_t = (
-        nl.SUB8 if sub8 else (nl.SUB16 if sub16 else nl.SUB)
-    )
-
-    # ---- density (+ hit flags), both tiers
-    if config.hit_compact:
-        density1, hits1 = nl.fused_density_nl(
-            q_pos, c_pos_pack, cand1, count1, params, terms, real,
-            r2_mxu=r2_mxu, want_hits=True,
-            hit_groups=nl.QG if force_q32 else 1,
-            hit_sub=hit_sub_t, c16=c16_all,
-        )
-        density2, hits2 = nl.fused_density_nl(
-            q_pos2, c_pos_pack, cand2, count2, params, terms, real2,
-            r2_mxu=r2_mxu, want_hits=True,
-            hit_groups=nl.QG if c16_all else 1,
-            hit_sub=(
-                hit_sub_t if c16_all else nl.SUB
-            ),
-            c16=c16_all,
-        )
-    else:
-        density1 = nl.fused_density_nl(
-            q_pos, c_pos_pack, cand1, count1, params, terms, real,
-            r2_mxu=r2_mxu, c16=c16_all,
-        )
-        density2 = nl.fused_density_nl(
-            q_pos2, c_pos_pack, cand2, count2, params, terms, real2,
-            r2_mxu=r2_mxu, c16=c16_all,
-        )
-    d1b = density1.reshape(nb, B)
-    d2b = density2.reshape(nb2, B)
-    # unused pool slots point at arbitrary rows: write back tier-1's
-    # value so the scatter is the identity there (idx rows distinct)
-    d2b = jnp.where(used[:, None], d2b, jnp.take(d1b, idx, axis=0))
-    density = d1b.at[idx].set(d2b).reshape(-1)
-
-    pressure = interactions_ops.tait_pressure(density, params)
-    pressure = jnp.where(real, pressure, 0.0)
-    if fix_density is not None:
-        density = fix_density(density)
-
-    q_force = make_q_force(density, pressure)
-    c_force_pack = (
-        None if c16_all else make_c_force_pack(density, pressure)
-    )
-    c16_pack = (
-        make_c16_pack(density, pressure)
-        if (sub16 or c16_all) and not sub8 else None
-    )
-    c8_pack = make_c8_pack(density, pressure) if sub8 else None
-
-    def ids8_of(cand16):
-        # 16-granular ids -> 8-granular half ids (see the single-tier
-        # sub8 branch in _density_forces_pallas_nl)
-        sent = tiles_ops.REFINE_SENTINEL
-        twice = jnp.where(cand16 == sent, sent, cand16 * 2)
-        return jnp.stack(
-            [twice, jnp.where(cand16 == sent, sent, twice + 1)], axis=-1
-        ).reshape(cand16.shape[0], -1)
-    q_force2 = jnp.take(q_force, idx, axis=0)
-    density2m = jnp.take(density.reshape(nb, B), idx, axis=0).reshape(-1)
-
-    # ---- forces, tier 1
-    if config.hit_compact:
-        if sub8:
-            ids1 = ids8_of(cand1)
-            cand_f1, count_f1, ovf3 = tiles_ops.compact_hits(
-                jnp.repeat(ids1, nl.QG, axis=0),
-                hits1[:, : ids1.shape[1]],
-                config.max_candidates_hit8,
-                self_lo=(
-                    None if self_lo is None
-                    else jnp.repeat(self_lo * 2, nl.QG)
-                ),
-                self_width=2 * sub,
-            )
-            accel1 = nl.fused_forces_nl32_c8(
-                q_force, c8_pack, cand_f1, count_f1, params, terms,
-                real, density, r2_mxu=r2_mxu,
-            )
-        elif c16_all:
-            # ids are natively 16-granular (the refine ran at sub =
-            # B/16); flags are slot-aligned — no interleave
-            cand_f1, count_f1, ovf3 = tiles_ops.compact_hits(
-                jnp.repeat(cand1, nl.QG, axis=0),
-                hits1[:, : cand1.shape[1]],
-                config.max_candidates_hit16,
-                self_lo=(
-                    None if self_lo is None else jnp.repeat(self_lo, nl.QG)
-                ),
-                self_width=sub,
-            )
-            accel1 = nl.fused_forces_nl32_c16(
-                q_force, c16_pack, cand_f1, count_f1, params, terms,
-                real, density, r2_mxu=r2_mxu,
-            )
-        elif sub16:
-            sent = tiles_ops.REFINE_SENTINEL
-            twice = jnp.where(cand1 == sent, sent, cand1 * 2)
-            ids16 = jnp.stack(
-                [twice, jnp.where(cand1 == sent, sent, twice + 1)], axis=-1
-            ).reshape(nb, -1)
-            cand_f1, count_f1, ovf3 = tiles_ops.compact_hits(
-                jnp.repeat(ids16, nl.QG, axis=0),
-                hits1[:, : ids16.shape[1]],
-                config.max_candidates_hit16,
-                self_lo=(
-                    None if self_lo is None
-                    else jnp.repeat(self_lo * 2, nl.QG)
-                ),
-                self_width=2 * sub,
-            )
-            accel1 = nl.fused_forces_nl32_c16(
-                q_force, c16_pack, cand_f1,
-                count_f1, params, terms, real, density, r2_mxu=r2_mxu,
-            )
-        elif force_q32:
-            cap32 = max(32, config.max_candidates_hit // 2)
-            cand_f1, count_f1, ovf3 = tiles_ops.compact_hits(
-                jnp.repeat(cand1, nl.QG, axis=0),
-                hits1[:, : cand1.shape[1]],
-                cap32,
-                self_lo=(
-                    None if self_lo is None else jnp.repeat(self_lo, nl.QG)
-                ),
-                self_width=sub,
-            )
-            accel1 = nl.fused_forces_nl32(
-                q_force, c_force_pack, cand_f1, count_f1, params, terms,
-                real, density, r2_mxu=r2_mxu,
-            )
-        else:
-            cand_f1, count_f1, ovf3 = tiles_ops.compact_hits(
-                cand1, hits1[:, : cand1.shape[1]],
-                config.max_candidates_hit,
-                self_lo=self_lo, self_width=sub,
-            )
-            accel1 = nl.fused_forces_nl(
-                q_force, c_force_pack, cand_f1, count_f1, params, terms,
-                real, density, r2_mxu=r2_mxu,
-            )
-        if sub8:
-            ids2 = ids8_of(cand2)
-            hit8cap2 = config.max_candidates_hit8 * config.tier2_mult
-            cand_f2, count_f2, ovf4 = tiles_ops.compact_hits(
-                jnp.repeat(ids2, nl.QG, axis=0),
-                hits2[:, : ids2.shape[1]],
-                hit8cap2,
-                self_lo=(
-                    None if self_lo2 is None
-                    else jnp.repeat(self_lo2 * 2, nl.QG)
-                ),
-                self_width=2 * sub,
-            )
-        elif c16_all:
-            # tier-2 keeps the 16-granular q32 force pass (the unified
-            # c16 scale config): per-subgroup hit lists at tier2_mult x
-            # the base 16-wide capacity
-            hit16cap2 = config.max_candidates_hit16 * config.tier2_mult
-            cand_f2, count_f2, ovf4 = tiles_ops.compact_hits(
-                jnp.repeat(cand2, nl.QG, axis=0),
-                hits2[:, : cand2.shape[1]],
-                hit16cap2,
-                self_lo=(
-                    None if self_lo2 is None
-                    else jnp.repeat(self_lo2, nl.QG)
-                ),
-                self_width=sub,
-            )
-        else:
-            hit2cap = config.max_candidates_hit * config.tier2_mult
-            cand_f2, count_f2, ovf4 = tiles_ops.compact_hits(
-                cand2, hits2[:, : cand2.shape[1]], hit2cap,
-                self_lo=self_lo2, self_width=sub,
-            )
-        flags = flags + (ovf3 | ovf4).astype(jnp.int32) * FLAG_CAPACITY_HIT
-    else:
-        cand_f2, count_f2 = cand2, count2
-        accel1 = nl.fused_forces_nl(
-            q_force, c_force_pack, cand1, count1, params, terms,
-            real, density, r2_mxu=r2_mxu,
-        )
-
-    # ---- forces, tier 2, then merge
-    if sub8:
-        accel2 = nl.fused_forces_nl32_c8(
-            q_force2, c8_pack, cand_f2, count_f2, params, terms, real2,
-            density2m, r2_mxu=r2_mxu,
-        )
-    elif c16_all:
-        accel2 = nl.fused_forces_nl32_c16(
-            q_force2, c16_pack, cand_f2, count_f2, params, terms, real2,
-            density2m, r2_mxu=r2_mxu,
-        )
-    else:
-        accel2 = nl.fused_forces_nl(
-            q_force2, c_force_pack, cand_f2, count_f2, params, terms, real2,
-            density2m, r2_mxu=r2_mxu,
-        )
-    a1b = accel1.reshape(nb, B, 3)
-    a2b = accel2.reshape(nb2, B, 3)
-    a2b = jnp.where(used[:, None, None], a2b, jnp.take(a1b, idx, axis=0))
-    accel = a1b.at[idx].set(a2b).reshape(-1, 3)
-    return density, pressure, accel, flags
+    density, pressure, accel = block_passes(blocked, cand, count, params, config)
+    return density, pressure, accel, overflow.astype(jnp.int32) * FLAG_CAPACITY
 
 
 def _advect_collide(
@@ -1061,12 +233,8 @@ def substep(
     scene: Optional[collisions_ops.DeviceScene],
     config: StepConfig,
     do_sort=True,
-    cand_in=None,
 ):
-    """One SPH substep. Returns (new_state, dt_next, flags) — plus a
-    trailing ``cand_out`` carry when config.cand_interval > 1 (pass it
-    back as ``cand_in`` on reuse substeps, which must also statically
-    skip the sort; see StepConfig.cand_interval).
+    """One SPH substep. Returns (new_state, dt_next, flags).
 
     ``do_sort``: True (default) re-sorts by Morton code; False (static)
     or a traced bool scalar (frame_jit with config.sort_interval > 1)
@@ -1090,11 +258,6 @@ def substep(
     stable IDs can track the permutation via ``state.grid_index``.
     """
     n = params.particles_count
-    if cand_in is not None and do_sort is not False:
-        raise ValueError(
-            "candidate reuse substeps must statically skip the sort "
-            "(do_sort=False): the carried ids index the sorted order"
-        )
 
     # ---- grid bounds + cell assignment (on-device findMinMaxPosition)
     grid = grid_ops.compute_bounds(state.position, params)
@@ -1105,7 +268,7 @@ def substep(
         grid_ops.grid_exceeds_sort_bits(grid.grid_size)
     )
 
-    if config.neighbor_impl in ("tiles", "pallas"):
+    if config.neighbor_impl != "exact":
         # pad to a whole number of blocks; sentinels sort last
         np_ = tiles_ops.padded_count(n, config.block_size)
         pad = np_ - n
@@ -1126,7 +289,7 @@ def substep(
 
     # ---- sort by Morton code (replaces the radix-sort pipeline)
     def sort_lean(st, cs):
-        # tiles/pallas: permute only the fields the rest of the substep
+        # tiles/fused: permute only the fields the rest of the substep
         # READS (position, velocity, intermediate_velocity) — density,
         # pressure and acceleration are rebuilt from scratch by the
         # density/force passes before anything consumes them, so
@@ -1168,17 +331,9 @@ def substep(
             )
 
     # ---- density + pressure, forces
-    cand_out = None
-    if config.neighbor_impl == "pallas":
+    if config.neighbor_impl in ("tiles", "fused"):
         real = jnp.arange(state.n, dtype=jnp.int32) < jnp.int32(n)
-        density, pressure, accel, cap_flags, cand_out = _density_forces_pallas(
-            state, real, params, config, cand_in=cand_in
-        )
-    elif config.neighbor_impl == "tiles":
-        if cand_in is not None:
-            raise ValueError("cand_interval reuse requires the pallas impl")
-        real = jnp.arange(state.n, dtype=jnp.int32) < jnp.int32(n)
-        density, pressure, accel, cap_flags = _density_forces_tiles(
+        density, pressure, accel, cap_flags = _density_forces_blocks(
             state, real, params, config
         )
     else:
@@ -1187,7 +342,7 @@ def substep(
         )
     state = state.replace(density=density, pressure=pressure, acceleration=accel)
 
-    if config.neighbor_impl in ("tiles", "pallas"):
+    if config.neighbor_impl != "exact":
         # drop sentinel tail before integration
         state = jax.tree.map(lambda a: a[:n], state)
 
@@ -1218,8 +373,6 @@ def substep(
         final_state, dt_out = first_state, first_dt
 
     flags = cap_flags + grid_bad.astype(jnp.int32) * FLAG_GRID_DIM
-    if config.cand_interval > 1:
-        return final_state, dt_out, flags, cand_out
     return final_state, dt_out, flags
 
 
@@ -1228,18 +381,6 @@ def substep(
 @partial(jax.jit, static_argnames=("params", "config", "do_sort"))
 def substep_jit(state, dt, params, scene, config, do_sort=True):
     return substep(state, dt, params, scene, config, do_sort=do_sort)
-
-
-@partial(jax.jit, static_argnames=("params", "config", "do_sort"))
-def substep_reuse_jit(state, dt, params, scene, config, cand_in,
-                      do_sort=False):
-    """Reuse-substep entry point for StepConfig.cand_interval > 1:
-    pass the ``cand_out`` carry of the previous substep (built by
-    substep_jit on a rebuild substep, which returns the 4-tuple when
-    cand_interval > 1)."""
-    return substep(
-        state, dt, params, scene, config, do_sort=do_sort, cand_in=cand_in
-    )
 
 
 @partial(jax.jit, static_argnames=("params", "config"))
@@ -1255,105 +396,6 @@ def frame_jit(state, dt, timeleft, params, scene, config):
     """
     cap = jnp.int32(config.substeps_per_dispatch)
     interval = int(config.sort_interval)
-    ci = int(config.cand_interval)
-    if ci > 1:
-        # candidate reuse inside the device loop: substep n rebuilds
-        # the candidate machinery when n % ci == 0 and reuses the
-        # carried tables otherwise (lax.cond — both programs compile,
-        # one executes per substep). Reuse substeps must not re-sort
-        # (ids index the sorted order), so re-sorts must coincide with
-        # rebuilds.
-        if interval % ci:
-            raise ValueError(
-                "sort_interval must be a multiple of cand_interval "
-                "(re-sorts must coincide with candidate rebuilds)"
-            )
-        np_ = tiles_ops.padded_count(
-            params.particles_count, config.block_size
-        )
-        # dummy carry for iteration 0 (n=0 always rebuilds): shapes
-        # match _density_forces_pallas_nl's cand_out at this config.
-        # The refined table's width is min(cap, sub * M) — the sort
-        # compaction can't emit more slots than the key plane has
-        # (tiles._self_priority_sort slices the sorted keys).
-        sub16 = config.density_sub16
-        subw = config.block_size // (16 if sub16 else 32)
-        width = min(
-            config.max_candidates_sub, subw * config.max_candidates
-        )
-        tables0 = (
-            jnp.zeros((np_ // config.block_size, width), jnp.int32),
-            jnp.zeros((np_ // config.block_size,), jnp.int32),
-            jnp.zeros((np_, 3), jnp.float32),
-        )
-        if config.tier2_frac > 0:
-            # two-tier reuse: the carried table is at the TIER-2 width
-            width = min(
-                config.max_candidates_sub * config.tier2_mult,
-                subw * config.max_candidates,
-            )
-            tables0 = (
-                jnp.zeros((np_ // config.block_size, width), jnp.int32),
-            ) + tables0[1:]
-        if sub16 and config.density_gate and config.tier2_frac == 0:
-            # gated reuse density: + the packed dilated tile-hit
-            # nibbles (one int32 word per 8-tile grid step)
-            step16 = 8 * 8  # GROUP16 * TPS subblock slots per grid step
-            mp = -(-width // step16) * step16
-            tables0 = tables0 + (
-                jnp.zeros(
-                    (np_ // config.block_size, mp // step16), jnp.int32
-                ),
-            )
-
-        def cond(carry):
-            _, _, timeleft, _, n, _ = carry
-            return (timeleft > 0.0) & (n < cap)
-
-        slack2 = jnp.float32((config.cand_slack * params.h) ** 2)
-
-        def body(carry):
-            st, dt_cur, timeleft, flags, n, tables = carry
-
-            def run_build(op):
-                s, d = op
-                do_sort = True if interval <= 1 else (n % interval == 0)
-                return substep(
-                    s, d, params, scene, config, do_sort=do_sort
-                )
-
-            def run_reuse(op):
-                s, d = op
-                return substep(
-                    s, d, params, scene, config,
-                    do_sort=False, cand_in=tables,
-                )
-
-            # PREDICTIVE staleness: decide rebuild-vs-reuse from the
-            # displacement since the carried anchor BEFORE running the
-            # substep, so a fast flow degrades gracefully to
-            # rebuild-every-substep instead of flagging mid-frame and
-            # forcing an engine-level frame re-run + slack-doubling
-            # recompile (measured r3: reactive flagging took the river
-            # scene from 8.2 to 17.5 s/frame).
-            d2 = jnp.sum(
-                (st.position - tables[2][: st.position.shape[0]]) ** 2,
-                axis=1,
-            )
-            stale_now = 4.0 * jnp.max(d2) > slack2
-            st, dt_next, step_flags, tables = jax.lax.cond(
-                (n % ci == 0) | stale_now, run_build, run_reuse,
-                (st, dt_cur),
-            )
-            timeleft = timeleft - dt_next
-            dt_next = jnp.where(timeleft < dt_next, timeleft, dt_next)
-            return st, dt_next, timeleft, flags | step_flags, n + 1, tables
-
-        state, dt, timeleft, flags, _, _ = jax.lax.while_loop(
-            cond, body,
-            (state, dt, timeleft, jnp.int32(0), jnp.int32(0), tables0),
-        )
-        return state, dt, timeleft, flags
 
     def cond(carry):
         _, _, timeleft, _, n = carry

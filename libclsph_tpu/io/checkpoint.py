@@ -1,6 +1,6 @@
 """Checkpoint / resume of the particle state.
 
-TPU-native equivalent of the reference's cereal raw-binary dump of the
+Equivalent of the reference's cereal raw-binary dump of the
 AoS particle array to ``last_frame.bin`` (example/particles.cpp:35-40,
 restore at sph_simulation.cpp:63-71): a single ``.npz`` with the SoA
 arrays plus a parameter fingerprint, so stale checkpoints (different N

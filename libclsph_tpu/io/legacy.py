@@ -12,7 +12,7 @@ to ``last_frame.bin`` with cereal's saveBinary (example/particles.cpp:
     + 4 B tail padding -> 80 bytes per particle
 
 This module reads/writes that exact layout so users can migrate
-existing reference checkpoints into the TPU framework (and export back
+existing reference checkpoints into this framework (and export back
 for side-by-side comparison runs).
 """
 

@@ -1,11 +1,11 @@
-"""On-device point rendering — the TPU-native answer to the
+"""On-device point rendering — the accelerator-side answer to the
 reference's OpenGL live view.
 
 The reference renders by uploading the particle buffer as a VBO and
 drawing density-coloured GL points with a rotating camera
 (``example/opengl.cpp:121-148``, ``shaders/vert.glsl:1-18``). The
-hardware there is the GPU's rasteriser; the TPU equivalent is to keep
-rasterisation ON the accelerator as a jitted XLA program and ship
+hardware there is the GPU's rasteriser; here rasterisation stays ON
+the accelerator as a jitted XLA program and ship
 PIXELS to the host instead of particles: at 1M particles a frame fetch
 drops from ~12 MB of state to a ~1.9 MB image, and the projection /
 z-test / colour math runs at device speed instead of in NumPy.

@@ -3,7 +3,7 @@
 The reference ships two fluid property sets (water/mucus,
 fluid_properties/*.json) and one simulation config
 (simulation_properties/default.json); its benchmark-relevant workloads
-are the scene x fluid combinations enumerated in BASELINE.md. This
+are scene x fluid combinations of the shipped scenes. This
 registry packages those as one-call presets so a user can run any
 headline workload without hand-assembling configs.
 """
@@ -75,7 +75,7 @@ class Preset:
         return derive_parameters(dict(self.fluid), dict(self.sim))
 
 
-# The benchmark matrix of BASELINE.md.
+# Scene x fluid workloads.
 PRESETS = {
     "dam-break-cube": Preset(
         "dam-break-cube",
@@ -104,7 +104,7 @@ PRESETS = {
         simulation_config(particles_count=262144),
         "monkey.obj",
         "256k shower.obj-emitter onto the monkey.obj obstacle "
-        "(BASELINE matrix #4). The emitter is USER CODE via the "
+        "The emitter is USER CODE via the "
         "pre_frame write-back hook, exactly like the reference "
         "(sph_simulation.cpp:730-748) — run it with "
         "experiments/emitter_run.py; the bare preset (no emitter) "

@@ -1,6 +1,6 @@
 """Mesh collisions via per-face signed distance fields.
 
-TPU-native re-implementation of ``libclsph/kernels/collisionsv2.cl``:
+Vectorised re-implementation of ``libclsph/kernels/collisionsv2.cl``:
 
 * :func:`bake_distance_field` — the one-time DF bake
   (computeDistanceField, collisionsv2.cl:57-138): for every gridpoint of
@@ -48,8 +48,7 @@ class DeviceScene(NamedTuple):
     # values whose base gridpoint is g, columns ordered d000..d111
     # (x-major digit order, see handle_collisions). Precomputed once at
     # bake so the per-substep lookup is ONE row gather instead of 8
-    # scalar gathers (8x fewer gather descriptors — measured 84 ms ->
-    # ~15 ms per call at 1M on v5e).
+    # scalar gathers.
     corner8: jnp.ndarray
 
     @property
@@ -167,9 +166,8 @@ def bake_distance_field(
     (chunk x shortlist) distances — one jitted ``lax.map`` over all
     chunks, one dispatch, one fetch. Shortlists are padded to a common
     multiple of ``face_chunk``; pad slots point at a sentinel face with
-    an inverted AABB that matches nothing. (The round-2 version's
-    13-dispatch all-faces scan measured 709 s for labyrinth's 801k
-    gridpoints; this formulation is the VERDICT r3 item #4 fix.)
+    an inverted AABB that matches nothing (an all-faces scan per
+    gridpoint would cost faces x gridpoints distance tests).
     """
     f_total = scene.face_count
     total = scene.total_gridpoints

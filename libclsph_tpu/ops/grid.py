@@ -1,6 +1,6 @@
 """Spatial-hash grid: bounds, cell assignment, sort, cell-range lookup.
 
-TPU-native redesign of the reference's grid machinery:
+Redesign of the reference's grid machinery for a jitted device step:
 
 * Bounds (min/max position + 2-cell padding, sph_simulation.cpp:634-728)
   are computed **on device** with ``jnp.min/max`` inside the jitted step
@@ -30,10 +30,8 @@ from ..core.params import SimulationParameters
 from ..core.state import ParticleState
 from . import radix_sort
 
-# "xla" (lax.sort_key_val) | "radix" (ops/radix_sort.py MXU-scan radix
-# over the 30-bit Morton keys) | "radix-fused" (same, rank/hist stage
-# as a Pallas kernel). All stable -> bit-identical; pick per chip from
-# experiments/radix_probe.py numbers.
+# "xla" (lax.sort_key_val) | "radix" (ops/radix_sort.py matrix-scan
+# radix over the 30-bit Morton keys). Both stable -> bit-identical.
 _SORT_IMPL = os.environ.get("LIBCLSPH_TPU_SORT", "xla")
 # radix only: Morton bits to sort. 30 is always safe (the 1024-cell
 # grid guard); a run whose grid never exceeds 2^(b/3) cells per axis
@@ -43,7 +41,7 @@ _SORT_IMPL = os.environ.get("LIBCLSPH_TPU_SORT", "xla")
 # (sph_simulation.cpp:722-724) instead of silently missorting.
 _SORT_BITS = int(os.environ.get("LIBCLSPH_TPU_SORT_BITS", "30"))
 # radix only: per-pass data movement, "scatter" | "gather" (see
-# radix_sort._apply_dest) — pick per chip.
+# radix_sort._apply_dest).
 _SORT_APPLY = os.environ.get("LIBCLSPH_TPU_SORT_APPLY", "scatter")
 
 
@@ -86,7 +84,7 @@ def grid_exceeds_sort_bits(grid_size: jnp.ndarray) -> jnp.ndarray:
     which requires every axis to stay <= 2^(b//3) cells. Constant
     False for the default 30 bits or the XLA sort backend, so it folds
     away under jit."""
-    if _SORT_IMPL not in ("radix", "radix-fused") or _SORT_BITS >= 30:
+    if _SORT_IMPL != "radix" or _SORT_BITS >= 30:
         return jnp.asarray(False)
     return jnp.any(grid_size > (1 << (_SORT_BITS // 3)))
 
@@ -100,10 +98,9 @@ def sort_by_cell(state: ParticleState, codes: jnp.ndarray):
     """
     n = codes.shape[0]
     iota = jnp.arange(n, dtype=jnp.int32)
-    if _SORT_IMPL in ("radix", "radix-fused"):
+    if _SORT_IMPL == "radix":
         sorted_codes, order = radix_sort.radix_sort_key_val(
-            codes, iota, num_bits=_SORT_BITS,
-            fused=(_SORT_IMPL == "radix-fused"), apply=_SORT_APPLY,
+            codes, iota, num_bits=_SORT_BITS, apply=_SORT_APPLY,
         )
     else:
         sorted_codes, order = jax.lax.sort_key_val(codes, iota)

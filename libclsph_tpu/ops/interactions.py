@@ -7,8 +7,8 @@ with K candidate neighbours plus a validity mask. Because every
 smoothing kernel already carries the hard support cutoff
 ``1 - clamp(floor(r/h),0,1)`` (smoothing.cl), any superset of the true
 r<h neighbourhood yields identical sums — so the same functions serve
-both the exact 27-cell gather path (ops/neighbors.py) and the MXU-tiled
-block path (ops/tiles.py).
+both the exact 27-cell gather path (ops/neighbors.py) and the block
+paths (ops/tiles.py).
 
 Shapes: query fields are (..., ) / (..., 3); candidate fields add a
 trailing K axis: (..., K) / (..., K, 3). ``valid`` masks padding;

@@ -10,7 +10,7 @@ XLA needs static shapes, so each cell's range is padded to
 SURVEY.md §7). This path is exact whenever no cell holds more than
 ``cell_capacity`` particles; overflow is detectable via
 :func:`max_cell_occupancy`. It is the clarity/correctness baseline —
-the production path is the MXU block-tile pass in ops/tiles.py.
+the production paths are the block-tile passes of ops/tiles.py.
 """
 
 from __future__ import annotations

@@ -1,14 +1,14 @@
 """LSD radix sort over Morton cell codes — the reference's sort pipeline
-rebuilt for the MXU.
+in plain XLA.
 
 The reference sorts (code, index) pairs with a hand-rolled 4-pass
 radix sort + Blelloch scans (sort.cl:1-200, host orchestration
 sph_simulation.cpp:110-198): per pass, per-workgroup digit histograms,
 a global exclusive scan, then a scatter. This module is the same
-algorithm re-expressed in XLA ops chosen for TPU:
+algorithm re-expressed in XLA ops:
 
-* **Block-local scans ride the MXU.** A stable radix pass needs, for
-  every element, its rank among same-digit elements. Per block of
+* **Block-local scans are matrix products.** A stable radix pass needs,
+  for every element, its rank among same-digit elements. Per block of
   ``block`` elements we one-hot the digits to a 0/1 matrix ``(block,
   D)`` and multiply by a lower-triangular ones matrix — an inclusive
   column scan as ONE ``(block, block) @ (block, D)`` matmul, batched
@@ -26,36 +26,19 @@ algorithm re-expressed in XLA ops chosen for TPU:
 Every pass is stable (offsets + in-order local ranks), so the result
 is bit-identical to ``jax.lax.sort_key_val`` (also stable), which
 remains the default backend; ``LIBCLSPH_TPU_SORT=radix`` switches
-``grid.sort_by_cell`` to this implementation and
-``LIBCLSPH_TPU_SORT=radix-fused`` to the Pallas-fused variant, which
-computes the rank/histogram stage in VMEM instead of materialised XLA
-one-hots (see ``experiments/radix_probe.py`` for the on-chip
-comparison).
+``grid.sort_by_cell`` to this implementation.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 # Morton codes are 3 x 10-bit coordinates (core/morton.py; the
 # reference's 1024-cells-per-axis guard, sph_simulation.cpp:700-728).
 MORTON_BITS = 30
-LANES = 128
-# 128-key blocks per Pallas grid step (fused impl): more rows per tile
-# amortise per-step DMA latency at the cost of a longer unrolled loop
-FUSED_GROUPS = 8
-
-
-def _interpret_default() -> bool:
-    if os.environ.get("LIBCLSPH_TPU_INTERPRET"):
-        return True
-    return jax.default_backend() != "tpu"
 
 
 def _apply_dest(keys, vals, dest, mode):
@@ -63,10 +46,8 @@ def _apply_dest(keys, vals, dest, mode):
 
     ``scatter``: two n-sized scatters (the reference's scatter kernel
     shape, sort.cl:150-200). ``gather``: ONE iota scatter builds the
-    inverse permutation, then keys/vals move via gathers — TPU gathers
-    vectorise where XLA scatters may serialize, so this trades 2n
-    scattered elements for n scattered + 2n gathered. Equal results;
-    pick per chip (experiments/radix_probe.py).
+    inverse permutation, then keys/vals move via gathers, trading 2n
+    scattered elements for n scattered + 2n gathered. Equal results.
     """
     if mode == "gather":
         inv = jnp.zeros_like(dest).at[dest].set(
@@ -82,85 +63,6 @@ def _apply_dest(keys, vals, dest, mode):
         vals, unique_indices=True, mode="promise_in_bounds"
     )
     return out_k, out_v
-
-
-def _rank_hist_kernel(keys_ref, local_ref, hist_ref, *, shift, d, groups):
-    """Per-128-lane-block digit ranks + histograms, one tile per step.
-
-    Each sublane row of the (groups, 128) key tile is one radix block.
-    For row r we build E[k, j] = (digit_j == k) directly in the
-    sublane-indexed orientation (no transpose: the (1, 128) digit row
-    broadcasts against a sublane iota), then one MXU matmul with the
-    upper-triangular ones matrix gives the inclusive lane scan
-    scanT[k, i] = #{j <= i : digit_j == k}. The element's own rank is
-    the E-masked sublane sum; the histogram is E's lane sum (written
-    as column r of the (128, groups) hist tile, so the pass's global
-    table lands digit-major in HBM with no relayout).
-
-    bf16 0/1 operands with f32 accumulation are exact (counts <= 128).
-    Replaces the reference's sort_count kernel + local scan
-    (sort.cl:23-40, prefix_sum_* sph.cl:788-881) with one fused pass.
-    """
-    kk = keys_ref[...]
-    dg = jax.lax.shift_right_logical(kk, shift) & (d - 1)
-    iota0 = jax.lax.broadcasted_iota(jnp.int32, (LANES, LANES), 0)
-    upper = (
-        iota0 <= jax.lax.broadcasted_iota(jnp.int32, (LANES, LANES), 1)
-    ).astype(jnp.bfloat16)
-    for r in range(groups):
-        row = dg[r : r + 1, :]  # (1, 128), broadcasts over sublanes
-        e = (iota0 == row).astype(jnp.bfloat16)
-        scan_t = jnp.dot(e, upper, preferred_element_type=jnp.float32)
-        ef = e.astype(jnp.float32)
-        local_ref[r : r + 1, :] = jnp.sum(
-            ef * scan_t, axis=0, keepdims=True
-        ).astype(jnp.int32)
-        hist_ref[0, :, r : r + 1] = jnp.sum(ef, axis=1, keepdims=True)
-
-
-def _radix_pass_fused(keys, vals, shift, *, bits, groups, interpret, apply):
-    """One stable pass with the rank/histogram stage as a Pallas kernel.
-
-    The XLA formulation (``_radix_pass``) materialises the (n, d)
-    one-hot and scan tensors in HBM (~200 MB/pass at 1M); here they
-    live only in VMEM — HBM traffic per pass drops to the key read,
-    two n-sized index writes, and the scatters.
-    """
-    n = keys.shape[0]
-    d = 1 << bits
-    nb = n // LANES
-    ki = keys.astype(jnp.int32)  # Morton keys < 2^30: int32-safe
-    # the histogram tile is written column-per-block as (LANES, groups);
-    # a 2D (LANES, nb) output would need an illegal (128, groups) block
-    # (Mosaic: last block dim must be %128 or the full array dim), so the
-    # output is 3D with the grid step as the leading dim — the block's
-    # trailing dims then EQUAL the array dims. The digit-major relayout
-    # happens in XLA afterwards (a few MB, off the kernel's critical path).
-    local, hist3 = pl.pallas_call(
-        functools.partial(_rank_hist_kernel, shift=shift, d=d, groups=groups),
-        grid=(nb // groups,),
-        in_specs=[pl.BlockSpec((groups, LANES), lambda g: (g, 0))],
-        out_specs=[
-            pl.BlockSpec((groups, LANES), lambda g: (g, 0)),
-            pl.BlockSpec((1, LANES, groups), lambda g: (g, 0, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((nb, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((nb // groups, LANES, groups), jnp.float32),
-        ],
-        interpret=interpret,
-    )(ki.reshape(nb, LANES))
-    # (steps, LANES, groups) -> digit-major (LANES, nb): block b of step s
-    # sits at column s*groups + r
-    hist = hist3.transpose(1, 0, 2).reshape(LANES, nb)
-    # global exclusive scan over the digit-major (d, nb) table: counts
-    # are integers <= n < 2^24, exact in f32
-    flat = hist[:d].reshape(-1)
-    ex = (jnp.cumsum(flat) - flat).reshape(d, nb)
-    dg = (jax.lax.shift_right_logical(ki, shift) & (d - 1)).reshape(nb, LANES)
-    base = jnp.take_along_axis(ex.T, dg, axis=1).astype(jnp.int32)
-    dest = (base + local - 1).reshape(-1)
-    return _apply_dest(keys, vals, dest, apply)
 
 
 def _radix_pass(keys, vals, shift, *, bits, block, apply):
@@ -194,10 +96,7 @@ def _radix_pass(keys, vals, shift, *, bits, block, apply):
 
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "num_bits", "bits_per_pass", "block", "fused", "interpret", "apply",
-        "groups",
-    ),
+    static_argnames=("num_bits", "bits_per_pass", "block", "apply"),
 )
 def radix_sort_key_val(
     keys: jnp.ndarray,
@@ -206,20 +105,14 @@ def radix_sort_key_val(
     num_bits: int = MORTON_BITS,
     bits_per_pass: int = 5,
     block: int = 128,
-    fused: bool = False,
-    interpret: bool | None = None,
     apply: str = "scatter",
-    groups: int = FUSED_GROUPS,
 ):
     """Stable radix sort of ``(keys, vals)`` by ``keys``.
 
     Bit-identical to ``jax.lax.sort_key_val`` for keys that fit in
-    ``num_bits`` unsigned bits. ``block`` is the MXU scan tile (local
-    ranks stay <= block; must keep block <= 256 for exact bf16 0/1
-    accumulation headroom and lane alignment). ``fused=True`` runs the
-    rank/histogram stage as a Pallas kernel (block fixed at 128,
-    bits_per_pass <= 7) instead of materialised XLA one-hots.
-    ``apply`` picks how each pass moves data: "scatter" (2 scatters)
+    ``num_bits`` unsigned bits. ``block`` is the scan tile (local ranks
+    stay <= block; block <= 256 keeps the bf16 0/1 accumulation
+    exact). ``apply`` picks how each pass moves data: "scatter" (2 scatters)
     or "gather" (1 inverse-permutation scatter + 2 gathers).
     """
     if keys.ndim != 1 or vals.shape != keys.shape:
@@ -228,16 +121,10 @@ def radix_sort_key_val(
         raise ValueError("block must be 128 or 256")
     if apply not in ("scatter", "gather"):
         raise ValueError("apply must be 'scatter' or 'gather'")
-    if fused and bits_per_pass > 7:
-        raise ValueError("fused path needs digits <= 128 (bits_per_pass <= 7)")
-    if fused and (groups < 1 or groups > 256):
-        raise ValueError("groups must be in [1, 256]")
-    if interpret is None:
-        interpret = _interpret_default()
     n = keys.shape[0]
     kind = keys.dtype
     keys = keys.astype(jnp.uint32)
-    pad = (-n) % (LANES * groups if fused else block)
+    pad = (-n) % block
     if pad:
         # max in-range key, appended AFTER the real elements: stable
         # passes keep pads behind every real tie, so [:n] is exact
@@ -247,13 +134,7 @@ def radix_sort_key_val(
         vals = jnp.concatenate([vals, jnp.zeros((pad,), vals.dtype)])
     for shift in range(0, num_bits, bits_per_pass):
         bits = min(bits_per_pass, num_bits - shift)
-        if fused:
-            keys, vals = _radix_pass_fused(
-                keys, vals, shift, bits=bits, groups=groups,
-                interpret=interpret, apply=apply,
-            )
-        else:
-            keys, vals = _radix_pass(
-                keys, vals, shift, bits=bits, block=block, apply=apply
-            )
+        keys, vals = _radix_pass(
+            keys, vals, shift, bits=bits, block=block, apply=apply
+        )
     return keys[:n].astype(kind), vals[:n]

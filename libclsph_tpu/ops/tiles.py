@@ -1,22 +1,21 @@
-"""Block-tile neighbour pass — the TPU production path.
+"""Block-tile neighbour search and the plain-XLA density/force passes.
 
-Design (TPU-first, no counterpart in the reference): after the Morton
-sort, consecutive particles are spatially coherent, so we partition the
+Design (no counterpart in the reference): after the Morton sort,
+consecutive particles are spatially coherent, so we partition the
 sorted array into fixed blocks of ``B`` particles and compute
 block-level axis-aligned bounding boxes. Two blocks can interact only
 if their AABBs, dilated by the support radius h, overlap — a dense
 (nb x nb) test that yields a padded per-block candidate list. The
 density/force passes then reduce over candidate blocks with dense
-(B x B) pairwise tiles.
+(B x B) pairwise tiles (here, in XLA) or with the fused GPU kernels of
+ops/pallas/neighbor_gpu.py, which read the same candidate lists.
 
-Why this beats a literal port of the reference's 27-cell gather
-(forces.cl:24-30) on TPU:
+Compared with a literal port of the reference's 27-cell gather
+(forces.cl:24-30):
 
 * every gather is a *contiguous block slice*, not a ragged per-cell
-  range — static shapes, unit-stride DMA;
-* the pairwise work is dense (B, B) tiles that XLA maps onto the
-  MXU/VPU; in ``mxu`` mode the heavy directional sums are literally
-  (B,B) @ (B,3) matmuls via
+  range — static shapes, unit-stride loads;
+* the directional sums are (B,B) @ (B,3) products via
     sum_j A_ij (x_i - x_j) = rowsum(A) * x_i - A @ X;
 * correctness does not depend on the tiling: the smoothing kernels'
   hard support cutoff (smoothing.cl) zeroes every candidate beyond h,
@@ -46,11 +45,12 @@ from ..core.params import PrecomputedKernelValues, SimulationParameters
 SENTINEL_CODE = (1 << 30) - 1
 
 # Hierarchical candidate search constants (see candidate_blocks_auto):
-# above ~1024 blocks the dense nb x nc overlap matrix (and its
-# 67M-element scatter at 1M particles: measured 348 ms/step) costs more
-# than the physics, so a superblock prefilter takes over. The env
-# override exists for tests that must compile the hierarchical path at
-# small n (tests/test_tpu_smoke.py).
+# above ~1024 blocks the dense nb x nc overlap matrix (67M elements and
+# their scatter at 1M particles) costs more than the physics, so a
+# superblock prefilter takes over. The threshold was tuned on the
+# accelerator this library was first written for and is not yet
+# measured on the GPU. The env override lets tests compile the
+# hierarchical path at small n.
 HIERARCHICAL_THRESHOLD = int(
     os.environ.get("LIBCLSPH_TPU_HIER_THRESHOLD", "1024")
 )
@@ -67,7 +67,6 @@ SUPER_CAND = 192
 class TileConfig(NamedTuple):
     block_size: int = 128  # B — particles per tile
     max_candidates: int = 64  # padded candidate blocks per block
-    mode: str = "direct"  # 'direct' (exact rvec) | 'mxu' (matmul r^2)
 
 
 def num_blocks(n: int, block_size: int) -> int:
@@ -277,14 +276,11 @@ def candidate_blocks_hierarchical(
     sb_count_sb = jnp.minimum(row_count1, super_cand)
     sb_overflow = jnp.any(row_count1 > super_cand)
 
-    # ---- level 2: refine the superblock shortlists to block lists.
-    # Blocks-from-superblocks is the same refinement problem as
-    # subblocks-from-blocks, so it reuses refine_candidates and
-    # inherits its flat 128-lane box pack + chunking (the previous
-    # in-line version gathered (nsb, K, S, 3) boxes, which the (8,128)
-    # tiling pads ~32x — multi-GB transients that scaled with the
-    # capacity). Member boxes are per-block UNIONS (mem_lo/mem_hi);
-    # the query side keeps its split boxes.
+    # ---- level 2: refine the superblock shortlists to block lists
+    # (refine_candidates: each candidate superblock's SUPER member
+    # boxes against the query's split boxes, chunked over query rows).
+    # Member boxes are per-block UNIONS (mem_lo/mem_hi); the query side
+    # keeps its split boxes.
     cand_rep = jnp.repeat(sb_cand_sb, SUPER, axis=0)  # (nb, Msb)
     count_rep = jnp.repeat(sb_count_sb, SUPER, axis=0)
     # self-priority: level-2 ids are BLOCK ids, the query's own id is
@@ -299,22 +295,8 @@ def candidate_blocks_hierarchical(
     return cand, count, overflow | sb_overflow
 
 
-def subblock_bounds(pos_blocked: jnp.ndarray, real_blocked: jnp.ndarray, sub: int):
-    """Per-subblock AABBs: each B-particle block split into ``sub``
-    consecutive runs of B/sub particles. pos (nb, B, 3) -> (nb*sub, 3).
-    Empty subblocks produce inverted boxes that overlap nothing."""
-    nb, b, _ = pos_blocked.shape
-    big = jnp.float32(3.0e38)
-    p = pos_blocked.reshape(nb * sub, b // sub, 3)
-    m = real_blocked.reshape(nb * sub, b // sub, 1)
-    return (
-        jnp.min(jnp.where(m, p, big), axis=1),
-        jnp.max(jnp.where(m, p, -big), axis=1),
-    )
-
-
-# sentinel id for dead slots in refined candidate tables; consumers map
-# it to a dedicated dead row (ops/pallas/neighbor_nl.py)
+# sentinel id for dead slots in refined candidate tables (the passes
+# read only the live slots [0, count), and clamp ids besides)
 REFINE_SENTINEL = 2**30  # Python int, not jnp (see SENTINEL_CODE note)
 
 # Self-priority bias for truncation-safe sorts (see _self_priority_sort):
@@ -335,12 +317,9 @@ def _self_priority_sort(keys, self_lo, self_width, max_out):
     * ``sort``: ascending row sort with self ids biased first — output
       slot order is globally ascending (after self ids).
     * ``scatter``: two row cumsums compute each live id's destination
-      (self ids first, then encounter order) + ONE 2D scatter. No
-      O(K log K) sort — the (nb, sub*m) truncation sorts were ~13 ms of
-      the 1M substep (xprof, r3_results.jsonl). Output order is
-      plane-encounter order, still live-first + self-first; consumers
-      (kernel count bounds, tier-2's [:c1] slice, gather locality)
-      only require live-first + self-priority, not ascending.
+      (self ids first, then encounter order) + ONE 2D scatter, with no
+      O(K log K) sort. Output order is encounter order, still
+      live-first + self-first, which is all the passes require.
     """
     if os.environ.get("LIBCLSPH_TPU_COMPACT", "sort") == "scatter":
         nb, _k = keys.shape
@@ -377,13 +356,10 @@ def _self_priority_sort(keys, self_lo, self_width, max_out):
         out = jnp.where(out < 0, out + SELF_BIAS, out)
     return out
 
-# transient budget for refine's gathered (rows, 128) box stream.
-# 2 GB runs the 1M refine as ONE dispatch (the 1.15 GB gather fits):
-# the lax.map chunk loop's carry copies were serializing ~9 ms/substep
-# at 1M (xprof r3, q1-refine1d row); 4M still chunks (4.8 GB transient).
-REFINE_CHUNK_BYTES = (
-    int(os.environ.get("LIBCLSPH_TPU_REFINE_CHUNK_MB", "2048")) << 20
-)
+# memory cap for refine's gathered (rows, 128) box stream: 2 GB, a few
+# per cent of an 80 GB card. The 1M search (~0.8 GB) runs as one
+# dispatch; larger runs fall back to a chunked lax.map over query rows.
+REFINE_CHUNK_BYTES = 2 << 30
 
 
 def refine_candidates(
@@ -399,34 +375,26 @@ def refine_candidates(
     self_lo: jnp.ndarray | None = None,
     self_width: int = 1,
 ):
-    """Refine block-granularity candidate lists to subblock granularity.
+    """Refine coarse candidate lists to their ``sub`` members each.
 
-    The round-1 kernels evaluate whole 128-particle candidate blocks
-    (~4.7k pair tests/particle at 1M vs ~30 real neighbours); testing
-    each candidate block's ``sub`` 32-particle subblocks against the
-    dilated query boxes drops most of that volume (the candidate-side
-    block extent shrinks by sub^(1/3)) for a tiny (nb, M*sub) test.
+    The hierarchical search's level 2: each candidate superblock's
+    ``sub`` member blocks are tested against the query's dilated split
+    boxes, so only overlapping members survive.
 
-    ``cand`` (nb, M) / ``count`` (nb,): block-granularity lists (from
-    candidate_blocks*); ``qmin``/``qmax`` (nb, S, 3): query split boxes;
-    ``sub_lo``/``sub_hi`` (nc*sub, 3): candidate subblock boxes (from
-    :func:`subblock_bounds`, possibly of a gathered global table).
+    ``cand`` (nb, M) / ``count`` (nb,): coarse lists; ``qmin``/``qmax``
+    (nb, S, 3): query split boxes; ``sub_lo``/``sub_hi`` (nc*sub, 3):
+    member boxes.
 
-    Layout (the LAYOUT RULE of ops/pallas/neighbor_nl.py): the per-slot
-    box gather reads a FLAT (nc, 128)-lane pack — lane s*6+f holds
-    subblock s's [lo.xyz | hi.xyz][f] — so its (rows, 128) output is
-    padding-free under the (8, 128) tiling. A naive (rows, sub, 3)
-    gather pads 42.7x (12 GB at 4M — instant OOM, measured). Overlap
-    per subblock = all 6 of its lane predicates pass, counted with one
-    (rows, 128) @ (128, sub) MXU product per split box; the whole test
-    is lax.map-chunked over query rows under REFINE_CHUNK_BYTES.
+    The per-slot box gather reads a flat (nc, 128) pack — lane s*6+f
+    holds member s's [lo.xyz | hi.xyz][f] — and a member overlaps when
+    all 6 of its lane predicates pass, counted with one
+    (rows, 128) @ (128, sub) product per split box; the test is chunked
+    over query rows under REFINE_CHUNK_BYTES.
 
-    Returns (cand_sub (nb, max_sub) int32 subblock ids with dead slots
-    = REFINE_SENTINEL, count_sub (nb,), overflowed () bool). Compaction
-    is the sort trick from candidate_blocks_hierarchical: ascending row
-    sort packs passing ids to the front. ``self_lo``/``self_width``:
-    optional per-row self-id range biased to survive capacity
-    truncation (:func:`_self_priority_sort`).
+    Returns (cand_sub (nb, max_sub) int32 member ids with dead slots
+    = REFINE_SENTINEL, count_sub (nb,), overflowed () bool).
+    ``self_lo``/``self_width``: optional per-row self-id range kept
+    through capacity truncation (:func:`_self_priority_sort`).
     """
     nb, m = cand.shape
     s_split = qmin.shape[1]
@@ -506,182 +474,6 @@ def refine_candidates(
     return cand_sub, jnp.minimum(count_sub, max_sub), overflow
 
 
-def refine_candidates_exact(
-    cand: jnp.ndarray,
-    count: jnp.ndarray,
-    qlo: jnp.ndarray,
-    qhi: jnp.ndarray,
-    pos_blocked: jnp.ndarray,
-    h: float,
-    sub: int,
-    max_sub: int,
-    self_lo: jnp.ndarray | None = None,
-    self_width: int = 1,
-):
-    """Exact-position subblock refinement — the round-3 production path.
-
-    :func:`refine_candidates` tests candidate subblock *AABBs* against
-    dilated query boxes; box-box overlap admits subblocks whose box
-    corner clips the query box but whose particles are all farther than
-    h from every query particle. This variant tests every candidate
-    block PARTICLE against the query boxes instead, with the exact
-    point-to-box distance (the "rounded box" test): a subblock survives
-    only iff >= 1 of its particles lies within h of some query box —
-    sum_axis max(lo-p, p-hi, 0)^2 <= h^2. The candidate-side slack
-    vanishes entirely AND the dilated-box corner slack (a point inside
-    the Minkowski box but > h from the box itself — ~11% of admitted
-    volume at 1M) goes with it; what remains is the query-side box
-    slack (distance to the box underestimates distance to the query
-    particles). Supersets never change the physics — the smoothing
-    kernels' hard r<h cutoff zeroes every extra pair (smoothing.cl:1-4)
-    — so this only shrinks kernel work.
-
-    ``cand`` (nb, M) / ``count`` (nb,): block-granularity lists;
-    ``qlo``/``qhi`` (nb, S, 3): query boxes (gap-split boxes from
-    :func:`split_block_bounds`); ``pos_blocked`` (nbc, B, 3): candidate
-    block positions in sorted order (sentinel particles sit at far
-    coordinates, outside every box, so no real-mask is needed).
-
-    Layout (the LAYOUT RULE): the per-slot position gather reads a FLAT
-    (nbc, 3*B) field-major pack — lanes [px*B | py*B | pz*B] — so its
-    (rows, M, 3B) output is padding-free under the (8, 128) tiling.
-    Each particle's 3 per-axis squared deficits are summed with one
-    (rows*M, 3B) @ (3B, B) MXU product per query box; the deficits are
-    NOT bf16-exact under the MXU's DEFAULT operand truncation, so the
-    h^2 threshold is inflated by 1% — strictly conservative (can only
-    admit extra subblocks near the boundary, never reject a true
-    neighbour; the admitted shell is ~0.5% of h). Chunked over query
-    rows under REFINE_CHUNK_BYTES.
-
-    Returns (cand_sub (nb, max_sub) int32 with dead slots =
-    REFINE_SENTINEL, count_sub (nb,), overflowed () bool).
-    ``self_lo``/``self_width``: optional truncation-safe self range
-    (:func:`_self_priority_sort`).
-    """
-    nb, m = cand.shape
-    s_boxes = qlo.shape[1]
-    nbc, b, _ = pos_blocked.shape
-    # flat field-major position pack (nbc, 3B)
-    pp = pos_blocked.swapaxes(1, 2).reshape(nbc, 3 * b)
-    # sel[l, p] = 1 iff lane l belongs to particle p (l % B == p)
-    lane = jnp.arange(3 * b, dtype=jnp.int32)
-    sel = (lane[:, None] % b == jnp.arange(b)[None, :]).astype(jnp.float32)
-    # per-lane UNdilated box bounds, field-major like the pack
-    lo_l = jnp.repeat(qlo, b, axis=-1)  # (nb, S, 3B)
-    hi_l = jnp.repeat(qhi, b, axis=-1)
-    live = jnp.arange(m, dtype=jnp.int32) < count[:, None]  # (nb, m)
-    candc = jnp.where(live, cand, 0)
-    # bf16-truncation guard for the deficit matmul (see docstring)
-    h2_cut = float(h) * float(h) * 1.01
-
-    def run(args):
-        candc_c, lo_c, hi_c, live_c, cand_c = args
-        rows = candc_c.shape[0]
-        g = jnp.take(pp, candc_c.reshape(-1), axis=0).reshape(rows, m, 3 * b)
-        inside = jnp.zeros((rows, m, b), bool)
-        for s in range(s_boxes):
-            # per-axis deficit: 0 inside the box slab, distance outside
-            deficit = jnp.maximum(
-                jnp.maximum(lo_c[:, s, None, :] - g, g - hi_c[:, s, None, :]),
-                0.0,
-            )
-            # clamp: sentinel/far particles would square to inf
-            deficit = jnp.minimum(deficit, 1.0e6)
-            d2 = jnp.einsum(
-                "rml,lp->rmp", deficit * deficit, sel,
-                preferred_element_type=jnp.float32,
-            )
-            inside = inside | (d2 <= h2_cut)
-        inside = inside & live_c[:, :, None]
-        # subblock survives iff any member particle is inside
-        ok = jnp.any(inside.reshape(rows, m, sub, b // sub), axis=-1)
-        ok = ok.swapaxes(1, 2)  # (rows, sub, m)
-        ids = cand_c[:, None, :] * sub + jnp.arange(sub, dtype=jnp.int32)[
-            None, :, None
-        ]
-        keys = jnp.where(ok, ids, REFINE_SENTINEL)
-        count_c = jnp.sum(ok, axis=(1, 2))
-        return keys, count_c
-
-    args = (candc, lo_l, hi_l, live, cand)
-    chunk = max(1, min(nb, REFINE_CHUNK_BYTES // (m * 3 * b * 4)))
-    if chunk == nb:
-        keys, count_sub = run(args)
-    else:
-        nch = -(-nb // chunk)
-        pad = nch * chunk - nb
-
-        def cc(a):
-            if pad:
-                a = jnp.concatenate(
-                    [a, jnp.zeros((pad,) + a.shape[1:], a.dtype)], axis=0
-                )
-            return a.reshape((nch, chunk) + a.shape[1:])
-
-        keys, count_sub = jax.lax.map(run, tuple(cc(a) for a in args))
-        keys = keys.reshape((-1, sub, m))[:nb]
-        count_sub = count_sub.reshape(-1)[:nb]
-
-    keys = jnp.concatenate([keys[:, s, :] for s in range(sub)], axis=1)
-    cand_sub = _self_priority_sort(keys, self_lo, self_width, max_sub)
-    overflow = jnp.any(count_sub > max_sub)
-    return cand_sub, jnp.minimum(count_sub, max_sub), overflow
-
-
-def route_overflow(count: jnp.ndarray, c1: int, nb2: int):
-    """Two-tier capacity routing: rows whose candidate count exceeds
-    the base capacity ``c1`` are routed to a fixed pool of ``nb2``
-    tier-2 slots, processed separately at a larger capacity.
-
-    Why: gather volume and kernel DMA scale with the STATIC capacity,
-    not the actual counts (dead slots are fetched either way), so a
-    global capacity regrowth doubles the dominant cost for every block
-    when only a few dense ones overflow — the 4M dam-break's failure
-    mode (BASELINE.md r2: regrowth to 192 cost 2x all gather volumes
-    while the hydrostatically compressed bottom blocks alone needed
-    it). Routing the heavy tail to nb2 = nb/8 slots at 2x capacity
-    costs ~25% extra volume instead of +100%.
-
-    Returns (idx (nb2,) int32 routed row ids, used (nb2,) bool slot
-    validity, count1 (nb,) tier-1 counts with routed rows zeroed,
-    pool_overflow () bool — more heavy rows than slots; the engine
-    responds by halving tier2_frac). ``idx`` rows are distinct (top_k
-    picks positions), so scatter-merges over them are well defined;
-    unused slots point at arbitrary rows and MUST be masked with
-    ``used``.
-    """
-    heavy = count > c1
-    vals, idx = jax.lax.top_k(jnp.where(heavy, count, -1), nb2)
-    used = vals > 0
-    count1 = jnp.where(heavy, 0, count)
-    pool_overflow = jnp.sum(heavy.astype(jnp.int32)) > nb2
-    return idx.astype(jnp.int32), used, count1, pool_overflow
-
-
-def compact_hits(cand_sub: jnp.ndarray, hits: jnp.ndarray, max_hit: int,
-                 self_lo: jnp.ndarray | None = None, self_width: int = 1):
-    """Compact a refined candidate list to its TRUE-HIT subblocks.
-
-    ``hits`` (nb, M) float counters from the density kernel's hit-flag
-    rows (neighbor.py _density_core_rowout): slot j > 0 iff subblock
-    cand_sub[i, j] has >= 1 particle within the support radius of some
-    particle of query block i. Dropping no-hit subblocks from the FORCE
-    pass is physics-exact — every force term carries the hard r < h
-    cutoff clamp, so a no-hit subblock contributes exactly 0.0
-    (measured at 1M: 2084 admitted -> 1677 true-hit slots/particle).
-
-    Returns (cand_hit (nb, max_hit), count_hit (nb,), overflowed).
-    ``self_lo``/``self_width``: optional truncation-safe self range
-    (:func:`_self_priority_sort`).
-    """
-    live = hits > 0.0
-    ids = jnp.where(live, cand_sub, REFINE_SENTINEL)
-    cand_hit = _self_priority_sort(ids, self_lo, self_width, max_hit)
-    count_hit = jnp.sum(live, axis=1, dtype=jnp.int32)
-    overflow = jnp.any(count_hit > max_hit)
-    return cand_hit, jnp.minimum(count_hit, max_hit), overflow
-
-
 def candidate_blocks_auto(bmin, bmax, h, max_candidates):
     """Pick the dense or hierarchical search by problem size.
 
@@ -735,26 +527,9 @@ def make_blocked(
     )
 
 
-def _pair_r2_direct(qp, cp):
+def _pair_r2(qp, cp):
     rvec = qp[:, :, None, :] - cp[:, None, :, :]  # (nb, B, B, 3)
-    return rvec, jnp.sum(rvec * rvec, axis=-1)
-
-
-def _pair_r2_mxu(qp, cp):
-    """r^2 via the matmul identity, centred per pair for precision.
-
-    Centering on the query block's first particle keeps coordinates at
-    the scale of a block extent (~h), so the |q|^2+|c|^2-2qc
-    cancellation stays far below the 1e-4 parity budget.
-    """
-    center = qp[:, :1, :]
-    q = qp - center
-    c = cp - center
-    qq = jnp.sum(q * q, axis=-1)  # (nb, B)
-    cc = jnp.sum(c * c, axis=-1)
-    qc = jnp.einsum("nbd,ncd->nbc", q, c, precision=jax.lax.Precision.HIGHEST, preferred_element_type=jnp.float32)
-    r2 = qq[:, :, None] + cc[:, None, :] - 2.0 * qc
-    return jnp.maximum(r2, 0.0)
+    return jnp.sum(rvec * rvec, axis=-1)
 
 
 def density_pass(
@@ -786,10 +561,7 @@ def density_pass(
         c = jnp.minimum(cand[:, m], cf.position.shape[0] - 1)  # (nb,)
         cp = jnp.take(cf.position, c, axis=0)  # (nb, B, 3)
         creal = jnp.take(cf.real, c, axis=0)  # (nb, B)
-        if cfg.mode == "mxu":
-            r2 = _pair_r2_mxu(qp, cp)
-        else:
-            _, r2 = _pair_r2_direct(qp, cp)
+        r2 = _pair_r2(qp, cp)
         r = jnp.sqrt(r2)
         w = smoothing.poly_6(r, h, terms)  # (nb, B, B)
         ok = (m < count)[:, None, None] & creal[:, None, :]
@@ -837,10 +609,7 @@ def force_pass(
         creal = jnp.take(cf.real, c, axis=0)
         cgid = jnp.take(cf.gid, c, axis=0)
 
-        if cfg.mode == "mxu":
-            r2 = _pair_r2_mxu(qp, cp)
-        else:
-            _, r2 = _pair_r2_direct(qp, cp)
+        r2 = _pair_r2(qp, cp)
         r = jnp.sqrt(r2)  # (nb, B, B)
 
         ok = (m < count)[:, None, None] & creal[:, None, :]

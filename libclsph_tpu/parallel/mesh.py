@@ -1,10 +1,11 @@
-"""Device mesh helpers for multi-chip SPH.
+"""Device mesh helpers for multi-device SPH.
 
 The reference is strictly single-device (init_cl_single_device,
-util/cl_boilerplate.cpp:3-63; SURVEY.md §2.3). Multi-chip scaling is a
-new, TPU-native capability: a 1-D ``jax.sharding.Mesh`` over the "dp"
-axis with particles spatially (Morton-range) decomposed across
-devices, collectives riding ICI.
+util/cl_boilerplate.cpp:3-63; SURVEY.md §2.3). Multi-device scaling is
+a new capability: a 1-D ``jax.sharding.Mesh`` over the "dp" axis with
+particles spatially (Morton-range) decomposed across devices. The mesh
+follows the algorithm alone: the cards of one host reach each other all
+to all over NVLink, so no device order is preferred.
 """
 
 from __future__ import annotations

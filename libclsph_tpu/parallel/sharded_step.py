@@ -1,13 +1,13 @@
-"""Multi-chip SPH substep via ``shard_map`` over a device mesh.
+"""Multi-device SPH substep via ``shard_map`` over a device mesh.
 
 New capability over the strictly single-device reference (SURVEY.md
-§2.3): spatial (Morton-range) data decomposition across chips.
+§2.3): spatial (Morton-range) data decomposition across devices.
 
 Per-shard algorithm (axis "dp"):
 
 1.  Global bounds via ``lax.pmin``/``lax.pmax`` (the distributed
     findMinMaxPosition, sph_simulation.cpp:634-728 — two blocking host
-    reads there, two ICI collectives here).
+    reads there, two collectives here).
 2.  Local Morton sort of the shard's particles. Shards are seeded with
     a host-side global Morton partition (parallel/mesh.py), so each
     shard stays spatially compact and its tiles coherent.
@@ -15,46 +15,41 @@ Per-shard algorithm (axis "dp"):
     ``all_gather`` gathers every shard's block tables (simple, traffic
     ~N per step); ``halo`` publishes only each shard's *surface*
     blocks, so traffic scales with the boundary area instead of the
-    volume. Both are validated equivalent to the single-chip step.
+    volume. Both are validated equivalent to the single-device step.
 4.  Adaptive-dt (sph_simulation.cpp:246-262) with ``lax.pmax`` over
-    shard-local maxima inside the on-device retry loop, so all chips
+    shard-local maxima inside the on-device retry loop, so all devices
     agree on dt with zero host synchronisation.
+
+The density and force passes are the single-device ones
+(engine/step.py): the plain-XLA tiles passes or the fused GPU kernels,
+reading the exchanged candidate table.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-# NOTE: the new jax.shard_map enforces varying-manual-axes typing that
-# would require pvary annotations throughout the tile machinery; the
-# experimental entry point with check_rep=False keeps the classic
-# semantics.
-from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core import morton
 from ..core.params import SimulationParameters
 from ..core.state import ParticleState
 from ..engine.step import (
-    FLAG_CAND_STALE,
     FLAG_CAPACITY,
-    FLAG_CAPACITY_HIT,
-    FLAG_CAPACITY_SUB,
-    FLAG_CAPACITY_T2,
     FLAG_EXCHANGE,
     FLAG_GRID_DIM,
     StepConfig,
-    nl_two_tier_passes,
     _advect_collide,
+    block_passes,
 )
 from ..ops import collisions as collisions_ops
 from ..ops import grid as grid_ops
 from ..ops import integrate as integrate_ops
-from ..ops import interactions as interactions_ops
 from ..ops import tiles as tiles_ops
 from .mesh import AXIS
 
@@ -76,302 +71,6 @@ def _compact_mask(mask: jnp.ndarray, cap: int):
     return idx, valid, total > cap
 
 
-def _nl_passes(
-    state_s: ParticleState,
-    blocked: tiles_ops.BlockedFields,
-    bmin: jnp.ndarray,
-    bmax: jnp.ndarray,
-    cand: jnp.ndarray,
-    count: jnp.ndarray,
-    pos_fields: tiles_ops.BlockedFields,
-    force_fields,
-    valid_s: jnp.ndarray,
-    gid_offset: jnp.ndarray,
-    params: SimulationParameters,
-    terms,
-    config: StepConfig,
-    center=None,
-    self_index=None,
-    cand_in=None,
-    h_search=None,
-):
-    """Run the production nl Pallas kernels (ops/pallas/neighbor_nl.py)
-    against an exchanged candidate block table — the sharded analog of
-    engine.step._density_forces_pallas_nl. ``pos_fields`` /
-    ``force_fields(blocked)`` provide the candidate-side tables
-    (all-gathered or local+halo). Returns (density, pressure, accel,
-    nl_flags int32, cand_tables) where ``cand_tables`` is the
-    (cand_sub, count_sub) refined-list pair for Verlet reuse (None on
-    the tier-2 path). ``center``: shared coordinate centre for the
-    MXU-r2 path (config.pair_r2), identical on every shard (from the
-    global pmin/pmax bounds).
-
-    ``cand_in``: carried (cand_sub, count_sub) from a build substep —
-    skips the refine entirely (StepConfig.cand_interval; the ids index
-    the COMBINED candidate table, whose layout is stable across reuse
-    substeps because sorts and surface sets are pinned to build
-    substeps). ``h_search``: refine threshold override (the build
-    substep's (1 + cand_slack) * h dilation)."""
-    from ..ops.pallas import neighbor_nl as nl
-
-    r2_mxu = config.pair_r2 == "mxu"
-    if not r2_mxu:
-        center = None
-
-    cfg = config.tile_config()
-    q_rows = min(config.nl_query_rows, cfg.block_size)
-    q_rep = cfg.block_size // q_rows
-    # two-tier overflow routing (engine/step.py StepConfig.tier2_frac):
-    # refine at the tier-2 width, route heavy rows per shard — all
-    # shard-local ops, no extra collectives
-    use_t2 = config.tier2_frac > 0 and q_rep == 1
-    dsub16 = config.density_sub16
-    if dsub16 and (
-        q_rep > 1
-        or q_rows != 128
-        or config.force_query_rows != 32
-        or not config.force_sub16
-        or not config.hit_compact
-    ):
-        raise ValueError(
-            "density_sub16 requires whole-block query rows with "
-            "force_query_rows=32 + force_sub16 + hit_compact "
-            "(engine/step.py rationale; tier2 composes since r4 — "
-            "both tiers run the 16-granular kernels)"
-        )
-    sub = cfg.block_size // (nl.SUB16 if dsub16 else nl.SUB)
-    cap_sub = config.max_candidates_sub * (
-        config.tier2_mult if use_t2 else 1
-    )
-    h_refine = params.h if h_search is None else h_search
-    if q_rep > 1:
-        cand_q = jnp.repeat(cand, q_rep, axis=0)
-        count_q = jnp.repeat(count, q_rep, axis=0)
-    else:
-        cand_q, count_q = cand, count
-    # truncation-safe self range: the query's own block index in the
-    # exchanged candidate table (tiles._self_priority_sort)
-    self_lo = None
-    if self_index is not None:
-        self_lo = jnp.repeat(self_index, q_rep) * sub
-    if cand_in is not None:
-        if use_t2 or q_rep > 1:
-            raise ValueError(
-                "sharded candidate reuse requires the plain nl shape "
-                "(whole-block query rows, no tier2)"
-            )
-        cand_sub, count_sub = cand_in
-        ovf = jnp.zeros((), jnp.bool_)
-    elif config.refine_mode == "exact":
-        # same refinement as engine.step._density_forces_pallas_nl:
-        # candidate-table PARTICLES vs gap-split dilated query boxes
-        if q_rep > 1:
-            nq = blocked.position.shape[0] * q_rep
-            qlo, qhi = tiles_ops.split_block_bounds(
-                blocked.position.reshape(nq, q_rows, 3),
-                blocked.real.reshape(nq, q_rows),
-            )
-        else:
-            qlo, qhi = bmin, bmax
-        cand_sub, count_sub, ovf = tiles_ops.refine_candidates_exact(
-            cand_q, count_q, qlo, qhi, pos_fields.position, h_refine, sub,
-            cap_sub, self_lo=self_lo, self_width=sub,
-        )
-    else:
-        sub_lo, sub_hi = tiles_ops.subblock_bounds(
-            pos_fields.position, pos_fields.real, sub
-        )
-        if q_rep > 1:
-            qlo, qhi = tiles_ops.subblock_bounds(
-                blocked.position, blocked.real, q_rep
-            )
-            qlo, qhi = qlo[:, None, :], qhi[:, None, :]
-        else:
-            qlo, qhi = bmin, bmax
-        cand_sub, count_sub, ovf = tiles_ops.refine_candidates(
-            cand_q, count_q, qlo, qhi, sub_lo, sub_hi, h_refine, sub,
-            cap_sub, self_lo=self_lo, self_width=sub,
-        )
-    mass = params.particle_mass
-
-    def packs(cf):
-        return nl.make_csub_packs(
-            cf.position.reshape(-1, 3),
-            cf.velocity.reshape(-1, 3),
-            cf.density.reshape(-1),
-            cf.pressure.reshape(-1),
-            cf.real.reshape(-1),
-            mass=mass,
-            gid=cf.gid.reshape(-1),
-            center=center,
-        )
-
-    def pack_c16(cf):
-        return nl.make_c16_force_pack(
-            cf.position.reshape(-1, 3),
-            cf.velocity.reshape(-1, 3),
-            cf.density.reshape(-1),
-            cf.pressure.reshape(-1),
-            cf.real.reshape(-1),
-            mass=mass,
-            gid=cf.gid.reshape(-1),
-            center=center,
-        )
-
-    q_pos, _ = nl.make_query_planes(
-        state_s.position, state_s.velocity, state_s.density, state_s.pressure,
-        valid_s, q_rows, mass=mass, gid_offset=gid_offset, center=center,
-    )
-    if dsub16:
-        c_pos_pack = nl.make_c16_pos_pack(
-            pos_fields.position.reshape(-1, 3),
-            pos_fields.real.reshape(-1),
-            center=center,
-        )
-    else:
-        c_pos_pack, _ = packs(pos_fields)
-    if use_t2:
-        # tier routing is shard-local: heavy QUERY rows of this shard
-        # route to its own tier-2 pool; only the force-pack closure
-        # performs collectives (the same ONE exchange as single-tier)
-        def make_q_force(density, pressure):
-            return nl.make_query_planes(
-                state_s.position, state_s.velocity, density, pressure,
-                valid_s, q_rows, mass=mass, gid_offset=gid_offset,
-                center=center,
-            )[1]
-
-        def make_c_force_pack(density, pressure):
-            blk = blocked._replace(
-                density=density.reshape(blocked.density.shape),
-                pressure=pressure.reshape(blocked.pressure.shape),
-            )
-            return packs(force_fields(blk))[1]
-
-        def make_c16_pack(density, pressure):
-            blk = blocked._replace(
-                density=density.reshape(blocked.density.shape),
-                pressure=pressure.reshape(blocked.pressure.shape),
-            )
-            return pack_c16(force_fields(blk))
-
-        return nl_two_tier_passes(
-            q_pos, c_pos_pack, make_q_force, make_c_force_pack,
-            valid_s, params, terms, config, r2_mxu,
-            cand_sub, count_sub, self_lo, sub,
-            ovf.astype(jnp.int32) * FLAG_CAPACITY_SUB,
-            fix_density=lambda d: jnp.where(
-                valid_s, d, params.fluid_density
-            ),
-            make_c16_pack=make_c16_pack,
-        ) + (None,)
-    # q32 force pass (engine/step.py force_query_rows rationale):
-    # per-QUERY-SUBGROUP hit lists halve the true-hit pair volume
-    force_q32 = (
-        config.force_query_rows == 32
-        and config.hit_compact
-        and q_rows == 128
-    )
-    sub16 = force_q32 and config.force_sub16
-    if force_q32:
-        density, hits = nl.fused_density_nl(
-            q_pos, c_pos_pack, cand_sub, count_sub, params, terms, valid_s,
-            r2_mxu=r2_mxu, want_hits=True, hit_groups=nl.QG,
-            hit_sub=nl.SUB16 if sub16 else nl.SUB, c16=dsub16,
-        )
-        if dsub16:
-            # 16-granular ids straight from the refine: flags are
-            # slot-aligned, no interleave (engine/step.py rationale)
-            cand_f, count_f, ovf_h = tiles_ops.compact_hits(
-                jnp.repeat(cand_sub, nl.QG, axis=0),
-                hits[:, : cand_sub.shape[1]],
-                config.max_candidates_hit16,
-                self_lo=(
-                    None if self_lo is None else jnp.repeat(self_lo, nl.QG)
-                ),
-                self_width=sub,
-            )
-        elif sub16:
-            sent = tiles_ops.REFINE_SENTINEL
-            twice = jnp.where(cand_sub == sent, sent, cand_sub * 2)
-            ids16 = jnp.stack(
-                [twice, jnp.where(cand_sub == sent, sent, twice + 1)],
-                axis=-1,
-            ).reshape(cand_sub.shape[0], -1)
-            cand_f, count_f, ovf_h = tiles_ops.compact_hits(
-                jnp.repeat(ids16, nl.QG, axis=0),
-                hits[:, : ids16.shape[1]],
-                config.max_candidates_hit16,
-                self_lo=(
-                    None if self_lo is None
-                    else jnp.repeat(self_lo * 2, nl.QG)
-                ),
-                self_width=2 * sub,
-            )
-        else:
-            cap32 = max(32, config.max_candidates_hit // 2)
-            cand_f, count_f, ovf_h = tiles_ops.compact_hits(
-                jnp.repeat(cand_sub, nl.QG, axis=0),
-                hits[:, : cand_sub.shape[1]],
-                cap32,
-                self_lo=(
-                    None if self_lo is None else jnp.repeat(self_lo, nl.QG)
-                ),
-                self_width=sub,
-            )
-    elif config.hit_compact:
-        density, hits = nl.fused_density_nl(
-            q_pos, c_pos_pack, cand_sub, count_sub, params, terms, valid_s,
-            r2_mxu=r2_mxu, want_hits=True,
-        )
-        cand_f, count_f, ovf_h = tiles_ops.compact_hits(
-            cand_sub, hits[:, : cand_sub.shape[1]], config.max_candidates_hit,
-            self_lo=self_lo, self_width=sub,
-        )
-    else:
-        ovf_h = jnp.zeros((), jnp.bool_)
-        density = nl.fused_density_nl(
-            q_pos, c_pos_pack, cand_sub, count_sub, params, terms, valid_s,
-            r2_mxu=r2_mxu,
-        )
-        cand_f, count_f = cand_sub, count_sub
-    pressure = interactions_ops.tait_pressure(density, params)
-    pressure = jnp.where(valid_s, pressure, 0.0)
-    density = jnp.where(valid_s, density, params.fluid_density)
-
-    blocked = blocked._replace(
-        density=density.reshape(blocked.density.shape),
-        pressure=pressure.reshape(blocked.pressure.shape),
-    )
-    _, q_force = nl.make_query_planes(
-        state_s.position, state_s.velocity, density, pressure,
-        valid_s, q_rows, mass=mass, gid_offset=gid_offset, center=center,
-    )
-    _, c_force_pack = packs(force_fields(blocked))
-    if sub16:
-        accel = nl.fused_forces_nl32_c16(
-            q_force, pack_c16(force_fields(blocked)), cand_f, count_f,
-            params, terms, valid_s, density, r2_mxu=r2_mxu,
-        )
-    elif force_q32:
-        accel = nl.fused_forces_nl32(
-            q_force, c_force_pack, cand_f, count_f, params, terms,
-            valid_s, density, r2_mxu=r2_mxu,
-        )
-    else:
-        accel = nl.fused_forces_nl(
-            q_force, c_force_pack, cand_f, count_f, params, terms,
-            valid_s, density, r2_mxu=r2_mxu,
-        )
-    # granular capacity bits so the engine autotune grows only the
-    # overflowing table (engine/step.py FLAG_CAPACITY* rationale)
-    nl_flags = (
-        ovf.astype(jnp.int32) * FLAG_CAPACITY_SUB
-        + ovf_h.astype(jnp.int32) * FLAG_CAPACITY_HIT
-    )
-    return density, pressure, accel, nl_flags, (cand_sub, count_sub)
-
-
 def _local_substep(
     state: ParticleState,
     dt: jnp.ndarray,
@@ -383,7 +82,6 @@ def _local_substep(
     halo_max: int = 0,
     halo_hops: int = 1,
     do_sort=True,
-    cand_in=None,
 ):
     """Body run per shard under shard_map. state arrays are the local
     shard (n_local = padded_n / n_shards rows).
@@ -401,38 +99,15 @@ def _local_substep(
       traffic independent of n_shards. Raises FLAG_EXCHANGE when a
       spatially-neighbouring shard is out of hop range.
 
-    Cadence (StepConfig.sort_interval / cand_interval, the sharded twin
-    of engine.step.substep's): ``do_sort`` True sorts locally, False
-    statically skips, a traced bool gates on device. ``cand_in`` is the
-    carried candidate dict of a build substep ({cand_sub, count_sub,
-    anchor} + {surf_idx, surf_valid} for halo/ring) — reuse substeps
-    skip the search/refine AND the surface-set/box exchange, keeping
-    only the per-substep FIELD exchanges. Sound because shard ownership
-    is static (particles never migrate between shards — the halo
-    machinery covers cross-shard neighbours), local order is pinned by
-    the skipped sorts, and the carried surface sets/refined lists were
-    built with the (1 + cand_slack) h dilation whose staleness guard
-    (global pmax of displacement-since-anchor) is re-checked here every
-    reuse substep.
+    Cadence (StepConfig.sort_interval, the sharded twin of
+    engine.step.substep's): ``do_sort`` True sorts locally, False
+    statically skips, a traced bool gates on device. Sound because shard
+    ownership is static (particles never migrate between shards — the
+    halo machinery covers cross-shard neighbours).
     """
     cfg = config.tile_config()
-    terms = params.precomputed()
     n_local = state.position.shape[0]
     shard = jax.lax.axis_index(AXIS)
-    reuse_on = config.cand_interval > 1
-    is_reuse = cand_in is not None
-    if reuse_on and config.neighbor_impl != "pallas":
-        raise ValueError("sharded candidate reuse requires the pallas impl")
-    if is_reuse and do_sort is not False:
-        raise ValueError(
-            "sharded reuse substeps must statically skip the sort "
-            "(the carried ids index the build substep's local order)"
-        )
-    # build-substep search dilation for the reuse window (the same
-    # superset + staleness-guard argument as engine/step.py)
-    h_search = (
-        params.h * (1.0 + config.cand_slack) if reuse_on else params.h
-    )
 
     # ---- 1. global bounds (pmin/pmax over real particles only);
     # sentinel padding rows are detected by their far-away positions
@@ -464,13 +139,13 @@ def _local_substep(
         grid_ops.grid_exceeds_sort_bits(grid.grid_size)
     )
 
-    # ---- 2. local Morton sort (pinned to build substeps under reuse)
+    # ---- 2. local Morton sort
     if do_sort is True:
         codes = grid_ops.locate_in_grid(state.position, grid)
         codes = jnp.where(valid, codes, tiles_ops.SENTINEL_CODE)
         state_s, _, order = grid_ops.sort_by_cell(state, codes)
         valid_s = jnp.take(valid, order, axis=0)
-    elif do_sort is False:  # statically skipped (reuse substeps)
+    elif do_sort is False:  # statically skipped
         state_s, valid_s = state, valid
     else:  # traced scalar: gate the sort on device
         codes = grid_ops.locate_in_grid(state.position, grid)
@@ -486,18 +161,6 @@ def _local_substep(
             jnp.abs(state_s.position).max(axis=1) < 1.0e30
         )
 
-    # staleness guard for carried candidate state: pairs (incl. remote
-    # ones) close by at most 2 * the GLOBAL max displacement since the
-    # build anchor — pmax makes the check global
-    stale_flag = jnp.int32(0)
-    if is_reuse:
-        d2 = jnp.sum((state_s.position - cand_in["anchor"]) ** 2, axis=1)
-        d2max = jax.lax.pmax(
-            jnp.max(jnp.where(valid_s, d2, 0.0)), AXIS
-        )
-        stale = 4.0 * d2max > (config.cand_slack * params.h) ** 2
-        stale_flag = stale.astype(jnp.int32) * FLAG_CAND_STALE
-
     # ---- 3. blocked fields + global candidate table
     blocked = tiles_ops.make_blocked(
         state_s.position,
@@ -510,13 +173,12 @@ def _local_substep(
     )
     bmin, bmax = tiles_ops.split_block_bounds(blocked.position, blocked.real)
 
-    # all-gather block tables over ICI (full tables only in
-    # all_gather mode; halo/ring modes exchange surface blocks below)
+    # all-gather block tables (full tables only in all_gather mode;
+    # halo/ring modes exchange surface blocks below)
     gather = lambda a: jax.lax.all_gather(a, AXIS, tiled=True)
     if exchange not in ("halo", "ring"):
-        if not is_reuse:
-            g_bmin = gather(bmin)
-            g_bmax = gather(bmax)
+        g_bmin = gather(bmin)
+        g_bmax = gather(bmax)
         g_blocked_pos = gather(blocked.position)
         g_real = gather(blocked.real)
         g_gid = gather(blocked.gid)
@@ -534,7 +196,7 @@ def _local_substep(
         # would have contributed raise FLAG_EXCHANGE (increase
         # halo_hops), checked conservatively against shard AABBs.
         s_n = n_shards
-        hdil = jnp.float32(h_search)
+        hdil = jnp.float32(params.h)
         # forward/backward hop budgets with disjoint reach (full ring
         # coverage when 2*halo_hops >= S-1)
         r_fwd = min(halo_hops, s_n // 2)
@@ -560,66 +222,57 @@ def _local_substep(
 
         self_index = jnp.arange(nb_local, dtype=jnp.int32)
         inf = jnp.float32(3.0e38)
-        if is_reuse:
-            # carried surface set: the combined-table layout must match
-            # the build substep's for the carried refined ids to stay
-            # valid; the staleness guard above bounds all drift
-            surf_idx = cand_in["surf_idx"]
-            surf_valid = cand_in["surf_valid"]
-            cand = count = None
-            overflow = jnp.zeros((), jnp.bool_)
-        else:
-            sh_min = gather(local_min[None, :])  # (S, 3) — tiny
-            sh_max = gather(local_max[None, :])
-            jidx = jnp.arange(s_n, dtype=jnp.int32)
-            fwd_d = jnp.mod(jidx - shard, s_n)
-            bwd_d = jnp.mod(shard - jidx, s_n)
-            near = ((fwd_d >= 1) & (fwd_d <= r_fwd)) | (
-                (bwd_d >= 1) & (bwd_d <= r_bwd)
-            )
-            sh_overlap = jnp.all(
-                (local_min[None, :] - hdil <= sh_max)
-                & (local_max[None, :] + hdil >= sh_min),
+        sh_min = gather(local_min[None, :])  # (S, 3) — tiny
+        sh_max = gather(local_max[None, :])
+        jidx = jnp.arange(s_n, dtype=jnp.int32)
+        fwd_d = jnp.mod(jidx - shard, s_n)
+        bwd_d = jnp.mod(shard - jidx, s_n)
+        near = ((fwd_d >= 1) & (fwd_d <= r_fwd)) | (
+            (bwd_d >= 1) & (bwd_d <= r_bwd)
+        )
+        sh_overlap = jnp.all(
+            (local_min[None, :] - hdil <= sh_max)
+            & (local_max[None, :] + hdil >= sh_min),
+            axis=-1,
+        )
+        exchange_bad = jnp.any(sh_overlap & ~near & (jidx != shard))
+
+        # surface blocks: dilated split boxes reaching a near shard
+        near_lo = jnp.where(near[:, None], sh_min, inf)
+        near_hi = jnp.where(near[:, None], sh_max, -inf)
+        reach = jnp.any(
+            jnp.all(
+                (bmin[:, :, None, :] - hdil <= near_hi[None, None, :, :])
+                & (bmax[:, :, None, :] + hdil >= near_lo[None, None, :, :]),
                 axis=-1,
-            )
-            exchange_bad = jnp.any(sh_overlap & ~near & (jidx != shard))
+            ),
+            axis=(1, 2),
+        )
+        surf_idx, surf_valid, surf_ovf = _compact_mask(reach, halo_max)
 
-            # surface blocks: dilated split boxes reaching a near shard
-            near_lo = jnp.where(near[:, None], sh_min, inf)
-            near_hi = jnp.where(near[:, None], sh_max, -inf)
-            reach = jnp.any(
-                jnp.all(
-                    (bmin[:, :, None, :] - hdil <= near_hi[None, None, :, :])
-                    & (bmax[:, :, None, :] + hdil >= near_lo[None, None, :, :]),
-                    axis=-1,
+        boxes = ring_exchange(
+            dict(
+                bmin=jnp.where(
+                    surf_valid[:, None, None],
+                    jnp.take(bmin, surf_idx, axis=0), inf,
                 ),
-                axis=(1, 2),
+                bmax=jnp.where(
+                    surf_valid[:, None, None],
+                    jnp.take(bmax, surf_idx, axis=0), -inf,
+                ),
             )
-            surf_idx, surf_valid, surf_ovf = _compact_mask(reach, halo_max)
-
-            boxes = ring_exchange(
-                dict(
-                    bmin=jnp.where(
-                        surf_valid[:, None, None],
-                        jnp.take(bmin, surf_idx, axis=0), inf,
-                    ),
-                    bmax=jnp.where(
-                        surf_valid[:, None, None],
-                        jnp.take(bmax, surf_idx, axis=0), -inf,
-                    ),
-                )
-            )
-            comb_bmin = jnp.concatenate(
-                [bmin] + [b["bmin"] for b in boxes], axis=0
-            )
-            comb_bmax = jnp.concatenate(
-                [bmax] + [b["bmax"] for b in boxes], axis=0
-            )
-            cand, count, cand_ovf = tiles_ops.candidate_blocks(
-                bmin, bmax, h_search, cfg.max_candidates,
-                comb_bmin, comb_bmax, self_index=self_index,
-            )
-            overflow = cand_ovf | surf_ovf
+        )
+        comb_bmin = jnp.concatenate(
+            [bmin] + [b["bmin"] for b in boxes], axis=0
+        )
+        comb_bmax = jnp.concatenate(
+            [bmax] + [b["bmax"] for b in boxes], axis=0
+        )
+        cand, count, cand_ovf = tiles_ops.candidate_blocks(
+            bmin, bmax, params.h, cfg.max_candidates,
+            comb_bmin, comb_bmax, self_index=self_index,
+        )
+        overflow = cand_ovf | surf_ovf
 
         def take_blocks(a):
             return jnp.take(a, surf_idx, axis=0)
@@ -655,51 +308,45 @@ def _local_substep(
         inf = jnp.float32(3.0e38)
         row_shard = jnp.arange(n_shards * halo_max, dtype=jnp.int32) // halo_max
         mine = row_shard == shard
-        if is_reuse:
-            surf_idx = cand_in["surf_idx"]
-            surf_valid = cand_in["surf_valid"]
-            cand = count = None
-            overflow = jnp.zeros((), jnp.bool_)
-        else:
-            # shard spatial boxes (from the real-particle bounds above)
-            sh_min = gather(local_min[None, :])  # (n_shards, 3)
-            sh_max = gather(local_max[None, :])
-            # does block b's dilated bbox reach any REMOTE shard's box?
-            hdil = jnp.float32(h_search)
-            other = jnp.arange(n_shards) != shard  # (n_shards,)
-            # bmin/bmax are (nb_l, 2, 3) split boxes
-            reach = jnp.any(
-                other[None, None, :]
-                & jnp.all(
-                    (bmin[:, :, None, :] - hdil <= sh_max[None, None, :, :])
-                    & (bmax[:, :, None, :] + hdil >= sh_min[None, None, :, :]),
-                    axis=-1,
-                ),
-                axis=(1, 2),
-            )  # (nb_l,)
-            surf_idx, surf_valid, surf_ovf = _compact_mask(reach, halo_max)
+        # shard spatial boxes (from the real-particle bounds above)
+        sh_min = gather(local_min[None, :])  # (n_shards, 3)
+        sh_max = gather(local_max[None, :])
+        # does block b's dilated bbox reach any REMOTE shard's box?
+        hdil = jnp.float32(params.h)
+        other = jnp.arange(n_shards) != shard  # (n_shards,)
+        # bmin/bmax are (nb_l, 2, 3) split boxes
+        reach = jnp.any(
+            other[None, None, :]
+            & jnp.all(
+                (bmin[:, :, None, :] - hdil <= sh_max[None, None, :, :])
+                & (bmax[:, :, None, :] + hdil >= sh_min[None, None, :, :]),
+                axis=-1,
+            ),
+            axis=(1, 2),
+        )  # (nb_l,)
+        surf_idx, surf_valid, surf_ovf = _compact_mask(reach, halo_max)
 
-            s_bmin = jnp.where(
-                surf_valid[:, None, None], jnp.take(bmin, surf_idx, axis=0),
-                inf,
-            )
-            s_bmax = jnp.where(
-                surf_valid[:, None, None], jnp.take(bmax, surf_idx, axis=0),
-                -inf,
-            )
-            g_s_bmin = gather(s_bmin)  # (n_shards*halo_max, 2, 3)
-            g_s_bmax = gather(s_bmax)
-            # my own surface rows must not duplicate my local blocks
-            g_s_bmin = jnp.where(mine[:, None, None], inf, g_s_bmin)
-            g_s_bmax = jnp.where(mine[:, None, None], -inf, g_s_bmax)
+        s_bmin = jnp.where(
+            surf_valid[:, None, None], jnp.take(bmin, surf_idx, axis=0),
+            inf,
+        )
+        s_bmax = jnp.where(
+            surf_valid[:, None, None], jnp.take(bmax, surf_idx, axis=0),
+            -inf,
+        )
+        g_s_bmin = gather(s_bmin)  # (n_shards*halo_max, 2, 3)
+        g_s_bmax = gather(s_bmax)
+        # my own surface rows must not duplicate my local blocks
+        g_s_bmin = jnp.where(mine[:, None, None], inf, g_s_bmin)
+        g_s_bmax = jnp.where(mine[:, None, None], -inf, g_s_bmax)
 
-            comb_bmin = jnp.concatenate([bmin, g_s_bmin], axis=0)
-            comb_bmax = jnp.concatenate([bmax, g_s_bmax], axis=0)
-            cand, count, cand_ovf = tiles_ops.candidate_blocks(
-                bmin, bmax, h_search, cfg.max_candidates,
-                comb_bmin, comb_bmax, self_index=self_index,
-            )
-            overflow = cand_ovf | surf_ovf
+        comb_bmin = jnp.concatenate([bmin, g_s_bmin], axis=0)
+        comb_bmax = jnp.concatenate([bmax, g_s_bmax], axis=0)
+        cand, count, cand_ovf = tiles_ops.candidate_blocks(
+            bmin, bmax, params.h, cfg.max_candidates,
+            comb_bmin, comb_bmax, self_index=self_index,
+        )
+        overflow = cand_ovf | surf_ovf
 
         def take_blocks(a):
             return jnp.take(a, surf_idx, axis=0)
@@ -726,14 +373,10 @@ def _local_substep(
         force_fields = combined_fields
     else:
         self_index = shard * nb_local + jnp.arange(nb_local, dtype=jnp.int32)
-        if is_reuse:
-            cand = count = None
-            overflow = jnp.zeros((), jnp.bool_)
-        else:
-            cand, count, overflow = tiles_ops.candidate_blocks(
-                bmin, bmax, h_search, cfg.max_candidates, g_bmin, g_bmax,
-                self_index=self_index,
-            )
+        cand, count, overflow = tiles_ops.candidate_blocks(
+            bmin, bmax, params.h, cfg.max_candidates, g_bmin, g_bmax,
+            self_index=self_index,
+        )
 
         pos_fields = tiles_ops.BlockedFields(
             position=g_blocked_pos,
@@ -754,51 +397,12 @@ def _local_substep(
                 gid=g_gid,
             )
 
-    # ---- density + forces over the exchanged candidate tables,
-    # by the configured backend (tiles, or the nl Pallas kernels)
-    cand_out = None
-    if config.neighbor_impl == "pallas":
-        density, pressure, accel, nl_flags, cand_tables = _nl_passes(
-            state_s, blocked, bmin, bmax, cand, count,
-            pos_fields, force_fields, valid_s,
-            shard * n_local, params, terms, config,
-            center=0.5 * (pos_min + pos_max),
-            self_index=self_index,
-            cand_in=(
-                (cand_in["cand_sub"], cand_in["count_sub"])
-                if is_reuse else None
-            ),
-            h_search=h_search if reuse_on else None,
-        )
-        cap_flags = overflow.astype(jnp.int32) * FLAG_CAPACITY + nl_flags
-        if reuse_on:
-            if is_reuse:
-                cand_out = cand_in  # pass the carry through unchanged
-            else:
-                cand_out = dict(
-                    cand_sub=cand_tables[0],
-                    count_sub=cand_tables[1],
-                    anchor=state_s.position,
-                )
-                if exchange in ("halo", "ring"):
-                    cand_out["surf_idx"] = surf_idx
-                    cand_out["surf_valid"] = surf_valid
-    else:
-        density = tiles_ops.density_pass(
-            blocked, cand, count, params, terms, cfg, cand_fields=pos_fields
-        )
-        pressure = interactions_ops.tait_pressure(density, params)
-        pressure = jnp.where(valid_s, pressure, 0.0)
-        density = jnp.where(valid_s, density, params.fluid_density)
-        blocked = blocked._replace(
-            density=density.reshape(blocked.density.shape),
-            pressure=pressure.reshape(blocked.pressure.shape),
-        )
-        accel = tiles_ops.force_pass(
-            blocked, cand, count, params, terms, cfg,
-            cand_fields=force_fields(blocked),
-        )
-        cap_flags = overflow.astype(jnp.int32) * FLAG_CAPACITY
+    # ---- density + forces over the exchanged candidate tables
+    density, pressure, accel = block_passes(
+        blocked, cand, count, params, config,
+        cand_fields=pos_fields, force_fields=force_fields,
+    )
+    cap_flags = overflow.astype(jnp.int32) * FLAG_CAPACITY
     accel = jnp.where(valid_s[:, None], accel, 0.0)
 
     state_s = state_s.replace(
@@ -856,17 +460,14 @@ def _local_substep(
         cap_flags
         + grid_bad.astype(jnp.int32) * FLAG_GRID_DIM
         + exchange_bad.astype(jnp.int32) * FLAG_EXCHANGE
-        + stale_flag
     )
     # cross-shard combine must be a bitwise OR, not a plain max: two
-    # shards flagging DIFFERENT bits (e.g. CAPACITY_SUB=8 on one,
-    # CAPACITY_HIT=16 on another) would lose the smaller bit under
-    # pmax of the packed field. pmax per bit == OR.
+    # shards flagging DIFFERENT bits (e.g. CAPACITY=1 on one, EXCHANGE=4
+    # on another) would lose the smaller bit under pmax of the packed
+    # field. pmax per bit == OR.
     bit = jnp.arange(8, dtype=jnp.int32)
     bits = jax.lax.pmax((flags >> bit) & 1, AXIS)
     flags = jnp.sum(bits << bit)
-    if reuse_on:
-        return final_state, dt_out, flags, cand_out
     return final_state, dt_out, flags
 
 
@@ -889,87 +490,15 @@ def _local_frame(
     config.substeps_per_dispatch. The host fetches ONE scalar per
     dispatch instead of one dt per substep.
 
-    Carries the single-chip cadence features under the mesh
-    (StepConfig.sort_interval / cand_interval): re-sorts and candidate
-    rebuilds run every k-th substep, with frame_jit's PREDICTIVE
-    staleness check (global pmax of displacement-since-anchor) forcing
-    a rebuild before any reuse substep could miss pairs."""
+    Honours StepConfig.sort_interval like frame_jit: re-sorts run on
+    the dispatch's first substep and every k-th after it."""
     cap = jnp.int32(config.substeps_per_dispatch)
     interval = int(config.sort_interval)
-    ci = int(config.cand_interval)
     run = partial(
         _local_substep, params=params, scene=scene, config=config,
         n_shards=n_shards, exchange=exchange, halo_max=halo_max,
         halo_hops=halo_hops,
     )
-
-    if ci > 1:
-        if interval % ci:
-            raise ValueError(
-                "sort_interval must be a multiple of cand_interval "
-                "(re-sorts must coincide with candidate rebuilds)"
-            )
-        n_local = state.position.shape[0]
-        cfgt = config.tile_config()
-        nb_local = n_local // cfgt.block_size
-        # the refine's output width is min(cap, sub * M): the sort-
-        # compaction can't emit more slots than the candidate key plane
-        # has (tiles._self_priority_sort slices the sorted keys)
-        sub = cfgt.block_size // (16 if config.density_sub16 else 32)
-        width = min(
-            config.max_candidates_sub, sub * config.max_candidates
-        )
-        tables0 = dict(
-            cand_sub=jnp.zeros((nb_local, width), jnp.int32),
-            count_sub=jnp.zeros((nb_local,), jnp.int32),
-            anchor=jnp.zeros((n_local, 3), jnp.float32),
-        )
-        if exchange in ("halo", "ring"):
-            tables0["surf_idx"] = jnp.zeros((halo_max,), jnp.int32)
-            tables0["surf_valid"] = jnp.zeros((halo_max,), jnp.bool_)
-
-        slack2 = jnp.float32((config.cand_slack * params.h) ** 2)
-
-        def cond(carry):
-            _, _, tl, _, k, _ = carry
-            return (tl > 0.0) & (k < cap)
-
-        def body(carry):
-            st, dt_cur, tl, flags, k, tables = carry
-
-            def run_build(op):
-                s, d = op
-                do_sort = True if interval <= 1 else (k % interval == 0)
-                return run(s, d, do_sort=do_sort)
-
-            def run_reuse(op):
-                s, d = op
-                return run(s, d, do_sort=False, cand_in=tables)
-
-            # PREDICTIVE staleness (engine/step.frame_jit rationale):
-            # decide rebuild-vs-reuse BEFORE the substep from the
-            # GLOBAL displacement since the carried anchor, so fast
-            # flows degrade to rebuild-every-substep instead of
-            # flagging mid-frame
-            d2 = jnp.sum((st.position - tables["anchor"]) ** 2, axis=1)
-            ok = jnp.abs(st.position).max(axis=1) < 1.0e30
-            d2max = jax.lax.pmax(
-                jnp.max(jnp.where(ok, d2, 0.0)), AXIS
-            )
-            stale_now = 4.0 * d2max > slack2
-            st, dt_next, step_flags, tables = jax.lax.cond(
-                (k % ci == 0) | stale_now, run_build, run_reuse,
-                (st, dt_cur),
-            )
-            tl = tl - dt_next
-            dt_next = jnp.where(tl < dt_next, tl, dt_next)
-            return st, dt_next, tl, flags | step_flags, k + 1, tables
-
-        state, dt, timeleft, flags, _, _ = jax.lax.while_loop(
-            cond, body,
-            (state, dt, timeleft, jnp.int32(0), jnp.int32(0), tables0),
-        )
-        return state, dt, timeleft, flags
 
     def cond(carry):
         _, _, tl, _, k = carry
@@ -1011,7 +540,7 @@ def make_sharded_frame(
         pressure=pspec,
         grid_index=pspec,
     )
-    fn = shard_map(
+    fn = jax.shard_map(
         partial(
             _local_frame,
             params=params,
@@ -1025,7 +554,7 @@ def make_sharded_frame(
         mesh=mesh,
         in_specs=(state_specs, P(), P()),
         out_specs=(state_specs, P(), P(), P()),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -1044,18 +573,7 @@ def make_sharded_substep(
     Expects state arrays pre-padded so N_padded is divisible by
     (n_shards * block_size); see :func:`pad_for_mesh`. ``exchange`` /
     ``halo_max``: see :func:`_local_substep`.
-
-    Candidate reuse is pinned off here: this per-substep entry point
-    serves the engine's SLOW path, whose host callbacks may mutate
-    positions between substeps — which would silently stale any carried
-    tables (the same rationale as the single-chip slow path). The
-    device-side frame loop (:func:`make_sharded_frame`) carries the
-    full cadence.
     """
-    import dataclasses
-
-    if config.cand_interval > 1:
-        config = dataclasses.replace(config, cand_interval=1)
     n_shards = mesh.shape[AXIS]
     pspec = P(AXIS)
     state_specs = ParticleState(
@@ -1068,7 +586,7 @@ def make_sharded_substep(
         grid_index=pspec,
     )
 
-    fn = shard_map(
+    fn = jax.shard_map(
         partial(
             _local_substep,
             params=params,
@@ -1082,7 +600,7 @@ def make_sharded_substep(
         mesh=mesh,
         in_specs=(state_specs, P()),
         out_specs=(state_specs, P(), P()),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -1175,11 +693,11 @@ def dryrun(n_devices: int) -> None:
     assert rho.min() > 0, rho.min()
     assert float(dt) > 0
 
-    # also exercise the production Pallas kernels + the point-to-point
-    # ppermute ring exchange under the mesh (full ring coverage), WITH
-    # a DF collision scene (a 2-triangle floor under the lattice) so
-    # the sharded collision path (collisionsv2.cl:249-336 under the
-    # mesh) is certified too
+    # also exercise the point-to-point ppermute ring exchange under the
+    # mesh (full ring coverage) WITH a DF collision scene (a 2-triangle
+    # floor under the lattice) so the sharded collision path
+    # (collisionsv2.cl:249-336 under the mesh) is certified too, on the
+    # platform's own neighbour path
     from ..scene.obj_loader import ObjMesh
     from ..scene.scene import Scene
 
@@ -1195,12 +713,7 @@ def dryrun(n_devices: int) -> None:
     )
     nb_local = state.position.shape[0] // n_devices // config.block_size
     config_p = StepConfig(
-        neighbor_impl="pallas", pallas_variant="nl",
         block_size=config.block_size, max_candidates=config.max_candidates,
-        max_candidates_sub=96,
-        # two-tier overflow routing compiled + executed under the mesh
-        # (engine/step.nl_two_tier_passes via the sharded caller)
-        tier2_frac=8, tier2_mult=2,
     )
     step_ring = make_sharded_substep(
         mesh, params, dev_scene, config_p, exchange="ring",
@@ -1214,9 +727,11 @@ def dryrun(n_devices: int) -> None:
     assert np.isfinite(pos2[real2]).all()
     assert float(dt2) > 0
 
-    # and the device-side frame loop (make_sharded_frame): a whole
-    # frame's substeps in one dispatch, one scalar fetched back
-    frame = make_sharded_frame(mesh, params, dev_scene, config_p)
+    # and the device-side frame loop (make_sharded_frame) with the
+    # sort cadence: a whole frame's substeps in one dispatch, one
+    # scalar fetched back
+    config_c = dataclasses.replace(config_p, sort_interval=2)
+    frame = make_sharded_frame(mesh, params, dev_scene, config_c)
     out3, dt3, timeleft3, flags3 = frame(
         state, jnp.float32(params.max_dt), jnp.float32(params.frame_time)
     )
@@ -1226,23 +741,3 @@ def dryrun(n_devices: int) -> None:
     real3 = np.abs(pos3).max(axis=1) < 1.0e30
     assert real3.sum() == params.particles_count
     assert np.isfinite(pos3[real3]).all()
-
-    # the CADENCED sharded frame (r4): sort_interval + cand_interval
-    # under the mesh — skipped local sorts, carried refined lists, the
-    # predictive global staleness check (engine/step.frame_jit's twin)
-    config_c = StepConfig(
-        neighbor_impl="pallas", pallas_variant="nl",
-        block_size=config.block_size, max_candidates=config.max_candidates,
-        max_candidates_sub=96, max_candidates_hit=96,
-        sort_interval=2, cand_interval=2, cand_slack=0.3,
-    )
-    frame_c = make_sharded_frame(mesh, params, dev_scene, config_c)
-    out4, dt4, timeleft4, flags4 = frame_c(
-        state, jnp.float32(params.max_dt), jnp.float32(params.frame_time)
-    )
-    assert not int(flags4), int(flags4)
-    assert float(timeleft4) <= 0.0 or float(dt4) > 0.0
-    pos4 = np.asarray(out4.position)
-    real4 = np.abs(pos4).max(axis=1) < 1.0e30
-    assert real4.sum() == params.particles_count
-    assert np.isfinite(pos4[real4]).all()

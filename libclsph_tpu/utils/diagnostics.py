@@ -1,7 +1,7 @@
 """Runtime diagnostics for the neighbour machinery.
 
 The reference validates by runtime assertion and visual inspection
-(SURVEY.md §4); this module gives the TPU engine observable health
+(SURVEY.md §4); this module gives the engine observable health
 metrics instead: candidate-capacity statistics, cell occupancy, and a
 density sanity summary, all computable on device and cheap to fetch.
 """

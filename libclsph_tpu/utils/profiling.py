@@ -2,15 +2,14 @@
 
 The reference's instrumentation is a pair of cudaProfilerStart/Stop
 brackets (libcudasph/sph_simulation.cu:186,312) and a wall-clock print
-(example/particles.cpp:102-109). TPU equivalents:
+(example/particles.cpp:102-109). JAX equivalents:
 
 * :func:`trace` — context manager around ``jax.profiler.trace`` writing
   a TensorBoard-loadable trace directory;
 * :func:`annotate` — named ``TraceAnnotation`` for phases (sort,
-  density, forces, advect) that show up on the TPU timeline;
-* :class:`StepTimer` — robust wall-clock step timing that forces a
-  device fetch, because on some PJRT backends ``block_until_ready``
-  returns before execution completes (see .claude/skills/verify).
+  density, forces, advect) that show up on the device timeline;
+* :class:`StepTimer` — wall-clock step timing that ends each lap with a
+  device fetch, so a lap never measures only the enqueue.
 """
 
 from __future__ import annotations

@@ -2,8 +2,7 @@
 //
 // The reference's exporter is native C++ (HoudiniFileDumpParticles,
 // util/houdini_geo/HoudiniFileDumpHelper.cpp:19-90, driven by
-// houdini_file_saver.cpp:25-92). This module is its TPU-framework
-// equivalent: a CPython extension that formats and writes a whole
+// houdini_file_saver.cpp:25-92). This module is its equivalent here: a CPython extension that formats and writes a whole
 // PGEOMETRY V5 frame in one C pass — ~20x faster than the NumPy
 // string-kernel fallback at millions of particles, which matters
 // because export overlaps device compute on the async saver thread.

@@ -245,12 +245,11 @@ class TestCapacityAutotune:
         """Degenerate distributions terminate with a clear error, not an
         infinite grow loop."""
         from libclsph_tpu.engine.simulation import MAX_CAPACITY_RETRIES
-        from libclsph_tpu.engine.step import FLAGS_ALL_CAPACITY
 
         sim = make_sim(tmp_path, n=256, sim_time=0.017)
         sim.capacity_retries = MAX_CAPACITY_RETRIES + 1
         with pytest.raises(RuntimeError):
-            sim._grow_capacity(FLAGS_ALL_CAPACITY)
+            sim._grow_capacity()
 
 
 class TestSortInterval:

@@ -3,7 +3,7 @@
 A short dam-break trajectory's statistical digest is compared against
 stored golden values (originally cross-validated against the NumPy
 oracle per-step in test_physics.py). Catches silent numerics drift in
-any pass. Tolerances are loose enough for cross-platform (CPU/TPU)
+any pass. Tolerances are loose enough for cross-platform (CPU/GPU)
 float reordering but tight enough to catch physics changes.
 """
 
@@ -54,15 +54,15 @@ def digest(fluid, impl):
     )
 
 
-@pytest.mark.parametrize("impl", ["tiles", "pallas"])
-def test_water_digest(impl):
+@pytest.mark.parametrize("impl", ["tiles", "fused"])
+def test_water_digest(impl, interpret_kernels):
     d = digest(WATER, impl)
     for k, v in GOLDEN_WATER.items():
         assert d[k] == pytest.approx(v, rel=2e-3), (k, d)
 
 
-@pytest.mark.parametrize("impl", ["tiles", "pallas"])
-def test_mucus_digest(impl):
+@pytest.mark.parametrize("impl", ["tiles", "fused"])
+def test_mucus_digest(impl, interpret_kernels):
     d = digest(MUCUS, impl)
     for k, v in GOLDEN_MUCUS.items():
         assert d[k] == pytest.approx(v, rel=2e-3), (k, d)
@@ -82,8 +82,8 @@ GOLDEN_WATER_CUBE = dict(
 )
 
 
-@pytest.mark.parametrize("impl", ["tiles", "pallas"])
-def test_water_cube_collision_digest(impl):
+@pytest.mark.parametrize("impl", ["tiles", "fused"])
+def test_water_cube_collision_digest(impl, interpret_kernels):
     from libclsph_tpu.ops import collisions as C
     from libclsph_tpu.scene.scene import Scene
 

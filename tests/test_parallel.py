@@ -1,4 +1,4 @@
-"""Multi-chip sharded step on the virtual 8-device CPU mesh."""
+"""Multi-device sharded step on the virtual 8-device CPU mesh."""
 
 import dataclasses
 
@@ -19,9 +19,10 @@ from libclsph_tpu.parallel.sharded_step import (
 
 from conftest import WATER, make_params
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs the 8-device CPU mesh"
-)
+@pytest.fixture(autouse=True)
+def eight_devices():
+    if len(jax.devices()) < 8:
+        pytest.skip("needs the 8-device CPU mesh")
 
 
 def shard_state(state, mesh):
@@ -81,14 +82,14 @@ class TestShardedStep:
         assert float(dt1) == pytest.approx(float(dt8), rel=1e-5)
 
     @pytest.mark.parametrize("exchange", ["all_gather", "halo"])
-    def test_pallas_nl_matches_single_chip(self, exchange):
-        """The production nl Pallas kernels under a mesh (interpret
-        mode on CPU) must reproduce the single-chip nl physics for both
+    def test_fused_matches_single_chip(self, exchange, interpret_kernels):
+        """The fused GPU kernels under a mesh (interpret mode on CPU)
+        must reproduce the single-device fused physics for both
         exchange strategies."""
         params = make_params(WATER, n=1024)
         cfg = StepConfig(
-            neighbor_impl="pallas", pallas_variant="nl", block_size=64,
-            max_candidates=32, max_candidates_sub=96, adaptive_dt=False,
+            neighbor_impl="fused", block_size=64, max_candidates=32,
+            adaptive_dt=False,
         )
         state0 = init_state(params)
         dt = jnp.float32(params.max_dt)
@@ -128,128 +129,6 @@ class TestShardedStep:
         a8 = np.asarray(s8.acceleration)[real][o8]
         np.testing.assert_allclose(a1, a8, atol=5e-4 * np.abs(a1).max())
         assert float(dt1) == pytest.approx(float(dt8), rel=1e-5)
-
-    @pytest.mark.parametrize(
-        "force_sub16,density_sub16",
-        [(False, False), (True, False), (True, True)],
-        ids=["c32", "c16-force", "c16-all"],
-    )
-    def test_pallas_nl_q32_matches_single_chip(
-        self, force_sub16, density_sub16
-    ):
-        """The q32 force pass (per-query-subgroup hit lists,
-        force_query_rows=32) under a mesh reproduces the single-chip
-        q32 physics — the sharded engine keeps feature parity with the
-        single-chip production path, incl. the 16-wide candidate paths
-        (force_sub16 / density_sub16: exchanged-table c16 packs +
-        16-granular ids)."""
-        params = make_params(WATER, n=2048)
-        cfg = StepConfig(
-            neighbor_impl="pallas", pallas_variant="nl", block_size=128,
-            max_candidates=32,
-            max_candidates_sub=144 if density_sub16 else 96,
-            max_candidates_hit=64,
-            force_query_rows=32, adaptive_dt=False,
-            force_sub16=force_sub16, density_sub16=density_sub16,
-        )
-        state0 = init_state(params)
-        dt = jnp.float32(params.max_dt)
-        s1, dt1, f1 = substep_jit(state0, dt, params, None, cfg)
-        assert not bool(f1)
-
-        mesh = make_mesh(jax.devices()[:8])
-        sp = pad_for_mesh(state0, params, mesh, cfg)
-        sp = shard_state(sp, mesh)
-        step = make_sharded_substep(mesh, params, None, cfg)
-        s8, dt8, f8 = step(sp, dt)
-        assert not bool(f8)
-
-        pos8 = np.asarray(s8.position)
-        real = np.abs(pos8).max(axis=1) < 1e30
-        assert real.sum() == params.particles_count
-
-        def key(pos):
-            q = np.round(np.asarray(pos, np.float64), 6)
-            return np.lexsort(q.T)
-
-        o1 = key(np.asarray(s1.position))
-        o8 = key(pos8[real])
-        np.testing.assert_allclose(
-            np.asarray(s1.density)[o1],
-            np.asarray(s8.density)[real][o8],
-            rtol=1e-5,
-        )
-        a1 = np.asarray(s1.acceleration)[o1]
-        a8 = np.asarray(s8.acceleration)[real][o8]
-        np.testing.assert_allclose(a1, a8, atol=5e-4 * np.abs(a1).max())
-        assert float(dt1) == pytest.approx(float(dt8), rel=1e-5)
-
-    @pytest.mark.parametrize(
-        "force_query_rows,c16_all",
-        [(128, False), (32, False), (32, True)],
-        ids=["q128", "q32", "c16-all"],
-    )
-    def test_pallas_nl_tier2_matches_sharded_single_tier(
-        self, rng, force_query_rows, c16_all
-    ):
-        """Two-tier capacity routing under a mesh (engine/step.py
-        nl_two_tier_passes via the sharded caller) reproduces the
-        sharded single-tier run at the full capacity bit-for-bit on
-        density: both execute identical kernels over identical sorted
-        candidate lists, per shard — the routing only changes which
-        dispatch a block's accumulation happens in."""
-        from test_tier2 import clustered_cloud, refined_counts
-        from test_physics import make_state
-
-        n = 2048
-        params = make_params(WATER, n=n)
-        pos, vel = clustered_cloud(rng, params, n)
-        state0 = make_state(pos, vel)
-
-        # heavy-row bar from the single-chip refined counts (proxy: the
-        # ball cluster makes its blocks heavy in any decomposition)
-        counts = refined_counts(make_state(pos, vel), params)
-        if c16_all:
-            counts = counts * 2  # 16-wide subblock counts are ~2x
-        c1 = max(32, int(np.median(counts)) + 8)
-        assert (counts > c1).any(), "test cloud produced no heavy blocks"
-        mult = 2
-        while c1 * mult < int(counts.max()) * 2:
-            mult *= 2
-
-        base = dict(
-            neighbor_impl="pallas", pallas_variant="nl", block_size=128,
-            max_candidates=64, max_candidates_hit=2 * c1,
-            force_query_rows=force_query_rows, adaptive_dt=False,
-            force_sub16=c16_all, density_sub16=c16_all,
-            max_candidates_hit16=4 * c1,
-        )
-        mesh = make_mesh(jax.devices()[:8])
-        dt = jnp.float32(params.max_dt)
-
-        cfg_full = StepConfig(max_candidates_sub=c1 * mult, **base)
-        sp = pad_for_mesh(state0, params, mesh, cfg_full)
-        sp = shard_state(sp, mesh)
-        s_full, dt_full, f_full = make_sharded_substep(
-            mesh, params, None, cfg_full
-        )(sp, dt)
-        assert not bool(f_full)
-
-        cfg_t2 = StepConfig(
-            max_candidates_sub=c1, tier2_frac=4, tier2_mult=mult, **base
-        )
-        s_t2, dt_t2, f_t2 = make_sharded_substep(
-            mesh, params, None, cfg_t2
-        )(sp, dt)
-        assert not bool(f_t2)
-
-        np.testing.assert_array_equal(
-            np.asarray(s_full.density), np.asarray(s_t2.density)
-        )
-        a1 = np.asarray(s_full.acceleration)
-        a2 = np.asarray(s_t2.acceleration)
-        np.testing.assert_allclose(a1, a2, atol=1e-5 * np.abs(a1).max())
-        assert float(dt_full) == pytest.approx(float(dt_t2), rel=1e-6)
 
     def test_sharded_collisions_match_single_chip(self):
         """The sharded DF collision path (DeviceScene routed through
@@ -360,25 +239,16 @@ class TestShardedStep:
 
     @pytest.mark.parametrize("exchange", ["all_gather", "ring"])
     def test_sharded_frame_cadence_matches_plain(self, exchange):
-        """The cadenced sharded frame (sort_interval + cand_interval
-        under the mesh, r4) must land within fp-noise distance of the
-        rebuild-every-substep sharded frame: skipped sorts only change
-        processing order, and the carried (dilated) candidate lists are
-        supersets whose extras the exact r<h cutoff zeroes. The ring
-        case additionally pins the carried SURFACE sets (the combined
-        candidate table layout must stay stable across reuse substeps).
-        """
+        """The cadenced sharded frame (sort_interval under the mesh)
+        must land within fp-noise distance of the sort-every-substep
+        sharded frame: skipped sorts only change processing order."""
         from libclsph_tpu.parallel.sharded_step import make_sharded_frame
 
         params = make_params(WATER, n=512)
         base = StepConfig(
-            neighbor_impl="pallas", pallas_variant="nl",
-            block_size=64, max_candidates=32,
-            max_candidates_sub=96, max_candidates_hit=96,
+            neighbor_impl="tiles", block_size=64, max_candidates=32,
         )
-        cad = dataclasses.replace(
-            base, sort_interval=2, cand_interval=2, cand_slack=0.3
-        )
+        cad = dataclasses.replace(base, sort_interval=2)
         mesh = make_mesh(jax.devices()[:8])
         state0 = shard_state(
             pad_for_mesh(init_state(params), params, mesh, base), mesh
@@ -517,12 +387,12 @@ class TestHaloExchange:
         np.testing.assert_allclose(a1, a2, atol=2e-5 * np.abs(a1).max())
         assert float(dt_ag) == pytest.approx(float(dt_r), rel=1e-6)
 
-    def test_ring_pallas_nl_matches(self):
-        """Ring exchange + the production nl Pallas kernels."""
+    def test_ring_fused_matches(self, interpret_kernels):
+        """Ring exchange + the fused GPU kernels (interpret mode)."""
         params = make_params(WATER, n=1024)
         cfg = StepConfig(
-            neighbor_impl="pallas", pallas_variant="nl", block_size=64,
-            max_candidates=32, max_candidates_sub=96, adaptive_dt=False,
+            neighbor_impl="fused", block_size=64, max_candidates=32,
+            adaptive_dt=False,
         )
         state0 = init_state(params)
         dt = jnp.float32(params.max_dt)
@@ -756,9 +626,9 @@ class TestShardedEngine:
 
 
 class TestShardedRadixSort:
-    @pytest.mark.parametrize("impl", ["radix", "radix-fused"])
+    @pytest.mark.parametrize("impl", ["radix"])
     def test_sharded_step_radix_backend_bitexact(self, impl, monkeypatch):
-        """The radix backends are stable drop-ins for lax.sort inside
+        """The radix backend is a stable drop-in for lax.sort inside
         the shard_mapped step too: per-shard results are bit-identical
         to the XLA-sort sharded step."""
         from libclsph_tpu.ops import grid as grid_ops
@@ -784,7 +654,7 @@ class TestShardedRadixSort:
 
         monkeypatch.setattr(grid_ops.radix_sort, "radix_sort_key_val", spy)
         s_rx, dt_rx, _ = make_sharded_substep(mesh, params, None, cfg)(sp, dt)
-        assert calls and calls[0]["fused"] == (impl == "radix-fused")
+        assert calls
 
         np.testing.assert_array_equal(
             np.asarray(s_xla.position), np.asarray(s_rx.position)
@@ -796,10 +666,10 @@ class TestShardedRadixSort:
 
 
 def test_bench_mesh_smoke(monkeypatch, capsys):
-    """bench.py --mesh N (the v5e-8 scaling harness, VERDICT r3 #6) on
-    the virtual CPU mesh: the sharded frame loop runs flag-clean and
-    the jaxpr collective audit sees the exchange traffic — one command
-    that produces the multi-chip number the day hardware exists."""
+    """bench.py --mesh N on the virtual CPU mesh: the sharded frame
+    loop runs flag-clean and the jaxpr collective audit sees the
+    exchange traffic — the same command gives the multi-card number on
+    a machine with several GPUs."""
     import json
     import os
     import runpy
@@ -809,9 +679,8 @@ def test_bench_mesh_smoke(monkeypatch, capsys):
     monkeypatch.chdir(root)
     monkeypatch.setattr(sys, "argv", [
         "bench.py", "--n", "4096", "--steps", "3", "--mesh", "8",
-        "--block-size", "64", "--max-candidates", "64",
-        "--max-candidates-sub", "96", "--json-only",
-        "--cand-interval", "2", "--sort-interval", "2",
+        "--block-size", "64", "--max-candidates", "64", "--json-only",
+        "--sort-interval", "2",
     ])
     runpy.run_path(os.path.join(root, "bench.py"), run_name="__main__")
     out = capsys.readouterr().out.strip().splitlines()[-1]

@@ -321,460 +321,16 @@ class TestDiagnostics:
         assert not s["any_nonfinite"]
 
 
-@pytest.mark.parametrize(
-    "variant,q_rows,pair_r2",
-    [("row", 128, "vpu"), ("asym", 128, "vpu"),
-     ("nl", 128, "vpu"), ("nl", 64, "vpu"), ("nl", 32, "vpu"),
-     ("asm", 128, "vpu"), ("asm", 32, "vpu"),
-     # MXU-r2 path: r2 rounds at ~|p|^2*6e-8 absolute, so densities
-     # land within the framework's 1e-4 physics-fidelity target rather
-     # than the vpu path's 1e-5 (BASELINE.md fidelity row)
-     ("nl", 128, "mxu"), ("nl", 32, "mxu"), ("asm", 128, "mxu")],
-)
-def test_pallas_variants_match_tiles(rng, variant, q_rows, pair_r2):
-    params = make_params(WATER, n=1024)
-    pos, vel = random_cloud(rng, params, 1024)
-    state = make_state(pos, vel)
-    cfg_t = StepConfig(neighbor_impl="tiles", adaptive_dt=False)
-    st, _, _ = substep_jit(state, jnp.float32(1e-9), params, None, cfg_t)
-    cfg_p = StepConfig(
-        neighbor_impl="pallas", pallas_variant=variant,
-        nl_query_rows=q_rows, pair_r2=pair_r2, adaptive_dt=False
-    )
-    sp, _, ovf = substep_jit(state, jnp.float32(1e-9), params, None, cfg_p)
-    assert not bool(ovf)
-    rho_rtol = 1e-5 if pair_r2 == "vpu" else 2e-4
-    acc_atol = 1e-4 if pair_r2 == "vpu" else 5e-4
-    np.testing.assert_allclose(
-        np.asarray(st.density), np.asarray(sp.density), rtol=rho_rtol
-    )
-    a1, a2 = np.asarray(st.acceleration), np.asarray(sp.acceleration)
-    np.testing.assert_allclose(a1, a2, atol=acc_atol * np.abs(a1).max())
-
-
-@pytest.mark.parametrize("variant", ["nl", "asm"])
-@pytest.mark.parametrize("q_rows", [128, 64])
-def test_hit_compaction_matches_full(rng, variant, q_rows):
-    """The force pass on hit-compacted candidate lists reproduces the
-    full-list pass: a no-hit subblock (no pair within the support
-    radius) contributes exactly 0 to every force term, so dropping it
-    only changes f32 summation order."""
-    params = make_params(WATER, n=2048)
-    pos, vel = random_cloud(rng, params, 2048)
-    state = make_state(pos, vel)
-    base = dict(
-        neighbor_impl="pallas", pallas_variant=variant,
-        nl_query_rows=q_rows, adaptive_dt=False,
-    )
-    s_full, _, _ = substep_jit(
-        state, jnp.float32(1e-9), params, None,
-        StepConfig(hit_compact=False, **base),
-    )
-    s_hit, _, ovf = substep_jit(
-        state, jnp.float32(1e-9), params, None,
-        StepConfig(hit_compact=True, **base),
-    )
-    assert not bool(ovf)
-    # density is computed before compaction — identical bits
-    np.testing.assert_array_equal(
-        np.asarray(s_full.density), np.asarray(s_hit.density)
-    )
-    a1, a2 = np.asarray(s_full.acceleration), np.asarray(s_hit.acceleration)
-    np.testing.assert_allclose(a1, a2, atol=1e-5 * np.abs(a1).max())
-
-
-def test_hit_flags_semantics(rng):
-    """The density kernel's TRUE-HIT flags equal a brute-force pair
-    test: slot j of query block i flags iff subblock cand_sub[i, j]
-    has >= 1 particle within h of some particle of block i."""
-    from libclsph_tpu.core.state import ParticleState as _PS
-    from libclsph_tpu.ops import tiles as tiles_ops
-    from libclsph_tpu.ops.pallas import neighbor_nl as nl
-
-    n = 1024
-    params = make_params(WATER, n=n)
-    pos, vel = random_cloud(rng, params, n)
-    state = make_state(pos, vel)
-    grid = grid_ops.compute_bounds(state.position, params)
-    codes = grid_ops.locate_in_grid(state.position, grid)
-    state, _, _ = grid_ops.sort_by_cell(state, codes)
-    real = jnp.ones((n,), bool)
-    B = 128
-    blocked = tiles_ops.make_blocked(
-        state.position, state.velocity, state.density, state.pressure, real, B
-    )
-    bmin, bmax = tiles_ops.split_block_bounds(blocked.position, blocked.real)
-    cand, count, _ = tiles_ops.candidate_blocks(bmin, bmax, params.h, 64)
-    sub = B // nl.SUB
-    cand_sub, count_sub, _ = tiles_ops.refine_candidates_exact(
-        cand, count, bmin, bmax, blocked.position, params.h, sub, 96
-    )
-    terms = params.precomputed()
-    q_pos, _ = nl.make_query_planes(
-        state.position, state.velocity, state.density, state.pressure,
-        real, B, mass=params.particle_mass,
-    )
-    c_pos, _ = nl.make_csub_packs(
-        state.position, state.velocity, state.density, state.pressure,
-        real, mass=params.particle_mass,
-    )
-    _, hits = nl.fused_density_nl(
-        q_pos, c_pos, cand_sub, count_sub, params, terms, real,
-        want_hits=True,
-    )
-    hits = np.asarray(hits)
-    p = np.asarray(state.position).reshape(-1, B, 3)
-    psub = np.asarray(state.position).reshape(-1, nl.SUB, 3)
-    cs, cn = np.asarray(cand_sub), np.asarray(count_sub)
-    h2 = params.h * params.h
-    for i in range(cs.shape[0]):
-        for j in range(cs.shape[1]):
-            sid = cs[i, j]
-            if j >= cn[i] or sid >= psub.shape[0]:
-                assert hits[i, j] == 0.0, (i, j)
-                continue
-            d2 = ((p[i][:, None, :] - psub[sid][None, :, :]) ** 2).sum(-1)
-            assert (hits[i, j] > 0) == bool((d2 < h2).any()), (i, j)
-
-    # compact_hits keeps exactly the flagged slots and reports overflow
-    # (compare as sorted sets: the scatter compaction impl is live-first
-    # but not ascending — see tiles._self_priority_sort)
-    ch, cnh, ovf = tiles_ops.compact_hits(cand_sub, jnp.asarray(hits), 96)
-    want = np.sort(np.where(hits > 0, cs, tiles_ops.REFINE_SENTINEL), axis=1)
-    np.testing.assert_array_equal(np.sort(np.asarray(ch), axis=1), want[:, :96])
-    np.testing.assert_array_equal(np.asarray(cnh), (hits > 0).sum(1))
-    assert not bool(ovf)
-    tiny_cap = max(1, int((hits > 0).sum(1).max()) - 1)
-    _, _, ovf2 = tiles_ops.compact_hits(cand_sub, jnp.asarray(hits), tiny_cap)
-    assert bool(ovf2)
-
-
-def test_force_q32_matches_q128(rng):
-    """The q32 force pass (per-query-subgroup hit lists + (32, 128)
-    pair panels, neighbor_nl.fused_forces_nl32) reproduces the
-    whole-block force pass up to f32 summation order."""
-    params = make_params(WATER, n=2048)
-    pos, vel = random_cloud(rng, params, 2048)
-    state = make_state(pos, vel)
-    base = dict(
-        neighbor_impl="pallas", pallas_variant="nl", adaptive_dt=False,
-        max_candidates_sub=96, max_candidates_hit=64,
-    )
-    s128, _, _ = substep_jit(
-        state, jnp.float32(1e-9), params, None,
-        StepConfig(force_query_rows=128, **base),
-    )
-    s32, _, ovf = substep_jit(
-        state, jnp.float32(1e-9), params, None,
-        StepConfig(force_query_rows=32, **base),
-    )
-    assert not bool(ovf)
-    np.testing.assert_array_equal(
-        np.asarray(s128.density), np.asarray(s32.density)
-    )
-    a1 = np.asarray(s128.acceleration)
-    a2 = np.asarray(s32.acceleration)
-    np.testing.assert_allclose(a1, a2, atol=1e-5 * np.abs(a1).max())
-
-
-def test_force_sub16_matches_q128(rng):
-    """The 16-wide q32 force pass (hit_sub=16 flags + 16-particle
-    candidate rows, neighbor_nl.fused_forces_nl32_c16) reproduces the
-    whole-block force pass up to f32 summation order."""
-    params = make_params(WATER, n=2048)
-    pos, vel = random_cloud(rng, params, 2048)
-    state = make_state(pos, vel)
-    base = dict(
-        neighbor_impl="pallas", pallas_variant="nl", adaptive_dt=False,
-        max_candidates_sub=96, max_candidates_hit=64,
-    )
-    s128, _, f128 = substep_jit(
-        state, jnp.float32(1e-9), params, None,
-        StepConfig(force_query_rows=128, **base),
-    )
-    s16, _, f16 = substep_jit(
-        state, jnp.float32(1e-9), params, None,
-        StepConfig(force_query_rows=32, force_sub16=True, **base),
-    )
-    assert not bool(f128) and not bool(f16)
-    np.testing.assert_array_equal(
-        np.asarray(s128.density), np.asarray(s16.density)
-    )
-    a1 = np.asarray(s128.acceleration)
-    a2 = np.asarray(s16.acceleration)
-    np.testing.assert_allclose(a1, a2, atol=1e-5 * np.abs(a1).max())
-
-
-def test_density_sub16_matches_q128(rng):
-    """The full-c16 path (density_sub16: 16-granular refine ids, c16
-    pos pack + c16 density kernel, slot-aligned hit flags, c16 force)
-    reproduces the q128/c32 production physics."""
-    params = make_params(WATER, n=2048)
-    pos, vel = random_cloud(rng, params, 2048)
-    state = make_state(pos, vel)
-    base = dict(
-        neighbor_impl="pallas", pallas_variant="nl", adaptive_dt=False,
-    )
-    s128, _, f128 = substep_jit(
-        state, jnp.float32(1e-9), params, None,
-        StepConfig(max_candidates_sub=96, max_candidates_hit=64, **base),
-    )
-    s16, _, f16 = substep_jit(
-        state, jnp.float32(1e-9), params, None,
-        StepConfig(
-            max_candidates_sub=144, force_query_rows=32, force_sub16=True,
-            density_sub16=True, **base,
-        ),
-    )
-    assert not bool(f128) and not bool(f16)
-    d1 = np.asarray(s128.density)
-    d2 = np.asarray(s16.density)
-    # the c16 density kernel sums the same pairs in a different tile
-    # order -> f32 summation-order tolerance (not bitwise)
-    np.testing.assert_allclose(d1, d2, rtol=1e-6)
-    a1 = np.asarray(s128.acceleration)
-    a2 = np.asarray(s16.acceleration)
-    np.testing.assert_allclose(a1, a2, atol=1e-5 * np.abs(a1).max())
-
-
-def test_force_sub8_matches_q128(rng):
-    """The 8-wide q32 force pass (hit_sub=8 flags, paired 8-particle
-    candidate rows + 15-round in-register transpose,
-    neighbor_nl.fused_forces_nl32_c8) reproduces the whole-block force
-    pass up to f32 summation order."""
-    params = make_params(WATER, n=2048)
-    pos, vel = random_cloud(rng, params, 2048)
-    state = make_state(pos, vel)
-    base = dict(
-        neighbor_impl="pallas", pallas_variant="nl", adaptive_dt=False,
-    )
-    s128, _, f128 = substep_jit(
-        state, jnp.float32(1e-9), params, None,
-        StepConfig(max_candidates_sub=96, max_candidates_hit=64, **base),
-    )
-    s8, _, f8 = substep_jit(
-        state, jnp.float32(1e-9), params, None,
-        StepConfig(
-            max_candidates_sub=144, force_query_rows=32, force_sub16=True,
-            density_sub16=True, force_sub8=True, max_candidates_hit8=96,
-            **base,
-        ),
-    )
-    assert not bool(f128) and not bool(f8)
-    np.testing.assert_allclose(
-        np.asarray(s128.density), np.asarray(s8.density), rtol=1e-6
-    )
-    a1 = np.asarray(s128.acceleration)
-    a2 = np.asarray(s8.acceleration)
-    np.testing.assert_allclose(a1, a2, atol=1e-5 * np.abs(a1).max())
-
-
-def test_force_sub8_tier2_matches_plain(rng):
-    """sub-8 under two-tier routing (both tiers on the c8 kernels)
-    reproduces the plain sub-8 pass."""
-    params = make_params(WATER, n=2048)
-    pos, vel = random_cloud(rng, params, 2048)
-    state = make_state(pos, vel)
-    base = dict(
-        neighbor_impl="pallas", pallas_variant="nl", adaptive_dt=False,
-        force_query_rows=32, force_sub16=True, density_sub16=True,
-        force_sub8=True, max_candidates_hit8=96,
-    )
-    s1, _, f1 = substep_jit(
-        state, jnp.float32(1e-9), params, None,
-        StepConfig(max_candidates_sub=144, **base),
-    )
-    s2, _, f2 = substep_jit(
-        state, jnp.float32(1e-9), params, None,
-        StepConfig(max_candidates_sub=96, tier2_frac=4, **base),
-    )
-    assert not bool(f1) and not bool(f2)
-    np.testing.assert_allclose(
-        np.asarray(s1.density), np.asarray(s2.density), rtol=1e-6
-    )
-    a1 = np.asarray(s1.acceleration)
-    a2 = np.asarray(s2.acceleration)
-    np.testing.assert_allclose(a1, a2, atol=1e-5 * np.abs(a1).max())
-
-
-def test_force_sub8_invalid_configs():
-    """force_sub8 outside its supported shape must raise, not silently
-    fall back."""
-    params = make_params(WATER, n=512)
-    state = make_state(
-        np.zeros((512, 3), np.float32), np.zeros((512, 3), np.float32)
-    )
-    for bad, msg in [
-        (dict(), "force_sub8"),  # needs density_sub16
-        (
-            dict(
-                force_query_rows=32, force_sub16=True, density_sub16=True,
-                density_gate=True, cand_interval=2,
-            ),
-            "force_sub8",
-        ),
-    ]:
-        cfg = StepConfig(
-            neighbor_impl="pallas", pallas_variant="nl", adaptive_dt=False,
-            force_sub8=True, **bad,
-        )
-        with pytest.raises(ValueError, match=msg):
-            substep_jit(state, jnp.float32(1e-9), params, None, cfg)
-
-
-def test_density_sub16_invalid_configs():
-    """density_sub16 outside its supported shape must raise, not
-    silently fall back (config-divergence guard)."""
-    params = make_params(WATER, n=512)
-    state = make_state(
-        np.zeros((512, 3), np.float32), np.zeros((512, 3), np.float32)
-    )
-    for bad in [
-        dict(force_query_rows=128),  # needs the q32 c16 force kernel
-        dict(force_query_rows=32, tier2_frac=8),  # t2 panels are 32-wide
-        dict(force_query_rows=32, force_sub16=False),
-    ]:
-        cfg = StepConfig(
-            neighbor_impl="pallas", pallas_variant="nl", adaptive_dt=False,
-            density_sub16=True,
-            **{"force_sub16": True, **bad},
-        )
-        with pytest.raises(ValueError, match="density_sub16"):
-            substep_jit(state, jnp.float32(1e-9), params, None, cfg)
-
-
-def test_force_sub16_capacity_overflow_flags(rng):
-    """A too-small max_candidates_hit16 must raise FLAG_CAPACITY_HIT
-    (the engine then doubles hit16, not hit) — truncation is never
-    silent."""
-    from test_tier2 import clustered_cloud
-    from libclsph_tpu.engine.step import FLAG_CAPACITY_HIT
-
-    params = make_params(WATER, n=2048)
-    pos, vel = clustered_cloud(rng, params, 2048)
-    state = make_state(pos, vel)
-    _, _, flags = substep_jit(
-        state, jnp.float32(1e-9), params, None,
-        StepConfig(
-            neighbor_impl="pallas", pallas_variant="nl", adaptive_dt=False,
-            max_candidates_sub=192, max_candidates_hit=192,
-            force_query_rows=32, force_sub16=True, max_candidates_hit16=32,
-        ),
-    )
-    assert int(flags) & FLAG_CAPACITY_HIT
-
-
-def test_q32_forces_wide_capacity(rng):
-    """q32 vs q128 forces at max_candidates_sub > 128 — the hit-flag
-    planes then span hit_rows=2 output rows per subgroup, a layout the
-    kernel must build with element-repeat semantics: pltpu.repeat's
-    TILE semantics silently scattered subgroup flags into the wrong
-    planes (dropping force pairs with NO overflow flag) whenever the
-    capacity exceeded the 128-lane query width, e.g. after a capacity
-    autotune regrowth (neighbor._density_core_rowout)."""
-    from test_tier2 import clustered_cloud
-
-    params = make_params(WATER, n=2048)
-    pos, vel = clustered_cloud(rng, params, 2048)
-    state = make_state(pos, vel)
-    base = dict(
-        neighbor_impl="pallas", pallas_variant="nl", adaptive_dt=False,
-        max_candidates_sub=192, max_candidates_hit=192,
-    )
-    s128, _, f128 = substep_jit(
-        state, jnp.float32(1e-9), params, None,
-        StepConfig(force_query_rows=128, **base),
-    )
-    s32, _, f32_ = substep_jit(
-        state, jnp.float32(1e-9), params, None,
-        StepConfig(force_query_rows=32, **base),
-    )
-    assert not bool(f128) and not bool(f32_)
-    np.testing.assert_array_equal(
-        np.asarray(s128.density), np.asarray(s32.density)
-    )
-    a1 = np.asarray(s128.acceleration)
-    a2 = np.asarray(s32.acceleration)
-    # the overlap-clustered cloud drives |a| to ~1e10 with heavy
-    # cancellation; q32 sums pairs in a different order, so the bar is
-    # loose in f32 ulps yet ~1000x below the dropped-pair failure mode
-    # this test exists to catch (which was ~1x relative)
-    np.testing.assert_allclose(a1, a2, atol=1e-4 * np.abs(a1).max())
-
-
-def test_subgroup_hit_flags_semantics(rng):
-    """hit_groups=4 density flags equal a brute-force per-subgroup
-    pair test: row i*4+g, slot j flags iff subblock cand_sub[i, j] has
-    >= 1 particle within h of some particle of ROWS [g*32, (g+1)*32)
-    of query block i."""
-    from libclsph_tpu.ops import tiles as tiles_ops
-    from libclsph_tpu.ops.pallas import neighbor_nl as nl
-
-    n = 1024
-    params = make_params(WATER, n=n)
-    pos, vel = random_cloud(rng, params, n)
-    state = make_state(pos, vel)
-    grid = grid_ops.compute_bounds(state.position, params)
-    codes = grid_ops.locate_in_grid(state.position, grid)
-    state, _, _ = grid_ops.sort_by_cell(state, codes)
-    real = jnp.ones((n,), bool)
-    B = 128
-    blocked = tiles_ops.make_blocked(
-        state.position, state.velocity, state.density, state.pressure, real, B
-    )
-    bmin, bmax = tiles_ops.split_block_bounds(blocked.position, blocked.real)
-    cand, count, _ = tiles_ops.candidate_blocks(bmin, bmax, params.h, 64)
-    sub = B // nl.SUB
-    cand_sub, count_sub, _ = tiles_ops.refine_candidates_exact(
-        cand, count, bmin, bmax, blocked.position, params.h, sub, 96
-    )
-    terms = params.precomputed()
-    q_pos, _ = nl.make_query_planes(
-        state.position, state.velocity, state.density, state.pressure,
-        real, B, mass=params.particle_mass,
-    )
-    c_pos, _ = nl.make_csub_packs(
-        state.position, state.velocity, state.density, state.pressure,
-        real, mass=params.particle_mass,
-    )
-    d1 = nl.fused_density_nl(
-        q_pos, c_pos, cand_sub, count_sub, params, terms, real
-    )
-    d4, hits4 = nl.fused_density_nl(
-        q_pos, c_pos, cand_sub, count_sub, params, terms, real,
-        want_hits=True, hit_groups=nl.QG,
-    )
-    # the flag planes must not perturb the density row
-    np.testing.assert_array_equal(np.asarray(d1), np.asarray(d4))
-    hits4 = np.asarray(hits4)
-    pq = np.asarray(state.position).reshape(-1, nl.Q32, 3)  # (nb*4, 32, 3)
-    psub = np.asarray(state.position).reshape(-1, nl.SUB, 3)
-    cs, cn = np.asarray(cand_sub), np.asarray(count_sub)
-    h2 = params.h * params.h
-    for i in range(cs.shape[0]):
-        for g in range(nl.QG):
-            row = i * nl.QG + g
-            for j in range(cs.shape[1]):
-                sid = cs[i, j]
-                if j >= cn[i] or sid >= psub.shape[0]:
-                    assert hits4[row, j] == 0.0, (i, g, j)
-                    continue
-                d2 = (
-                    (pq[row][:, None, :] - psub[sid][None, :, :]) ** 2
-                ).sum(-1)
-                assert (hits4[row, j] > 0) == bool((d2 < h2).any()), (i, g, j)
-
-
 @pytest.mark.parametrize("n", [100, 129, 2049])
-def test_odd_particle_counts(n):
+def test_odd_particle_counts(n, interpret_kernels):
     """Non-power-of-two and sub-block counts pad correctly through the
-    whole substep (both tile backends)."""
+    whole substep (both block backends)."""
     from libclsph_tpu.core.state import init_state
 
     params = make_params(WATER, n=n)
     state = init_state(params)
     dt = jnp.float32(params.max_dt)
-    for impl in ["tiles", "pallas"]:
+    for impl in ["tiles", "fused"]:
         cfg = StepConfig(neighbor_impl=impl)
         s2, _, _ = substep_jit(state, dt, params, None, cfg)
         assert np.isfinite(np.asarray(s2.position)).all()

@@ -26,8 +26,8 @@ class TestPresetRegistry:
             assert p.particles_count > 0
 
     def test_benchmark_matrix_covered(self):
-        # the five BASELINE.md workloads (+ the emitter-free monkeybox
-        # stand-in kept for CLI-only runs)
+        # the five scene x fluid workloads (+ the emitter-free
+        # monkeybox stand-in kept for CLI-only runs)
         assert set(PRESETS) == {
             "dam-break-cube",
             "water-box-64k",
@@ -36,7 +36,7 @@ class TestPresetRegistry:
             "monkeybox-256k",
             "river-1m",
         }
-        # matrix #4 is the shower.obj emitter onto monkey.obj
+        # the shower workload is the shower.obj emitter onto monkey.obj
         assert PRESETS["shower-monkey-256k"].scene == "monkey.obj"
         assert "emitter_run" in PRESETS["shower-monkey-256k"].description
 

@@ -1,4 +1,4 @@
-"""On-device point renderer (io/render.py) — the TPU-native equivalent
+"""On-device point renderer (io/render.py) — the accelerator-side equivalent
 of the reference's GL viewer (example/opengl.cpp:121-148,
 shaders/vert.glsl:1-18)."""
 

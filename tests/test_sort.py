@@ -2,8 +2,8 @@
 
 The reference's radix pipeline (sort.cl:1-200, sph_simulation.cpp:
 110-198) is covered functionally by lax.sort_key_val; these tests pin
-the hand-built MXU-scan radix sort as an exact drop-in (stability
-included), so the engine can switch backends per chip measurement.
+the hand-built matrix-scan radix sort as an exact drop-in (stability
+included), so the engine can switch sort backends.
 """
 
 import jax
@@ -76,10 +76,10 @@ def test_block_256(rng):
     np.testing.assert_array_equal(np.asarray(v), rv)
 
 
-@pytest.mark.parametrize("impl", ["radix", "radix-fused"])
+@pytest.mark.parametrize("impl", ["radix"])
 def test_sort_by_cell_radix_backend(rng, monkeypatch, impl):
-    """grid.sort_by_cell honours LIBCLSPH_TPU_SORT={radix,radix-fused}
-    and the backends agree with XLA on a real particle state."""
+    """grid.sort_by_cell honours LIBCLSPH_TPU_SORT=radix and the
+    backends agree with XLA on a real particle state."""
     from libclsph_tpu.core.state import init_state
     from libclsph_tpu.ops import grid as grid_ops
     from tests.conftest import make_params
@@ -98,46 +98,14 @@ def test_sort_by_cell_radix_backend(rng, monkeypatch, impl):
     )
 
 
-@pytest.mark.parametrize("n", [300, 1024, 4096, 65536])
-@pytest.mark.parametrize("bits_per_pass", [5, 6])
-def test_fused_matches_lax_sort(rng, n, bits_per_pass):
-    """The Pallas fused rank/hist pass (interpret mode on CPU) is
-    bit-identical to lax.sort_key_val, stability included."""
-    keys = jnp.asarray(rng.integers(0, 1 << 30, size=n, dtype=np.uint32))
-    vals = jnp.asarray(rng.permutation(n).astype(np.int32))
-    k, v = radix_sort_key_val(
-        keys, vals, bits_per_pass=bits_per_pass, fused=True
-    )
-    rk, rv = _ref(keys, vals)
-    np.testing.assert_array_equal(np.asarray(k), rk)
-    np.testing.assert_array_equal(np.asarray(v), rv)
-
-
-def test_fused_heavy_duplicates(rng):
-    n = 8192
-    keys = jnp.asarray(rng.integers(0, 64, size=n, dtype=np.uint32))
-    vals = jnp.asarray(rng.permutation(n).astype(np.int32))
-    k, v = radix_sort_key_val(keys, vals, fused=True)
-    rk, rv = _ref(keys, vals)
-    np.testing.assert_array_equal(np.asarray(k), rk)
-    np.testing.assert_array_equal(np.asarray(v), rv)
-
-
-def test_fused_rejects_wide_digits():
-    keys = jnp.zeros((128,), jnp.uint32)
-    vals = jnp.zeros((128,), jnp.int32)
-    with pytest.raises(ValueError):
-        radix_sort_key_val(keys, vals, bits_per_pass=8, fused=True)
-
-
-@pytest.mark.parametrize("fused", [False, True])
-def test_gather_apply_matches_scatter(rng, fused):
+@pytest.mark.parametrize("block", [128, 256])
+def test_gather_apply_matches_scatter(rng, block):
     """The inverse-permutation gather apply is a pure data-movement
     swap: results stay bit-identical to the scatter apply."""
     n = 4096
     keys = jnp.asarray(rng.integers(0, 1 << 30, size=n, dtype=np.uint32))
     vals = jnp.asarray(rng.permutation(n).astype(np.int32))
-    k, v = radix_sort_key_val(keys, vals, fused=fused, apply="gather")
+    k, v = radix_sort_key_val(keys, vals, block=block, apply="gather")
     rk, rv = _ref(keys, vals)
     np.testing.assert_array_equal(np.asarray(k), rk)
     np.testing.assert_array_equal(np.asarray(v), rv)
@@ -157,15 +125,3 @@ def test_reduced_sort_bits_guard(monkeypatch):
     assert not bool(
         grid_ops.grid_exceeds_sort_bits(jnp.asarray([8, 8, 8], jnp.int32))
     )
-
-
-def test_fused_wide_groups(rng):
-    """groups controls rows per Pallas grid step only — results are
-    unchanged, including at a non-divisible n that needs padding."""
-    n = 5000  # not a multiple of 32 * 128
-    keys = jnp.asarray(rng.integers(0, 1 << 30, size=n, dtype=np.uint32))
-    vals = jnp.asarray(rng.permutation(n).astype(np.int32))
-    k, v = radix_sort_key_val(keys, vals, fused=True, groups=32)
-    rk, rv = _ref(keys, vals)
-    np.testing.assert_array_equal(np.asarray(k), rk)
-    np.testing.assert_array_equal(np.asarray(v), rv)
